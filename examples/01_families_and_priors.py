@@ -1,11 +1,11 @@
-"""Families and priors tour — the `pospkg` vignette, TPU-native.
+"""Families and priors tour — the `pospkg` vignette, in JAX.
 
 Covers the scenarios of the reference's main vignette
 (vignettes/pospkg.Rmd): gaussian/identity, binomial/logit, binomial/probit,
 poisson/log, negative-binomial, with iid, strongly-misspecified, list and
 multivariate-normal priors, plus the normal-normal conjugate cross-check.
 
-Run: env PYTHONPATH= JAX_PLATFORMS=cpu python examples/01_families_and_priors.py
+Run: env JAX_PLATFORMS=cpu python examples/01_families_and_priors.py
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""Adding a new family — the `customising` vignette, TPU-native.
+"""Adding a new family — the `customising` vignette, in JAX.
 
 The reference's extension recipe is "define log_density.<family>"
 (customising.Rmd:27-31,53-56).  Here the equivalent is one
@@ -6,7 +6,7 @@ The reference's extension recipe is "define log_density.<family>"
 example reproduces the vignette's inverse-gaussian model (which ships
 built-in) by registering it under a new name from scratch.
 
-Run: env PYTHONPATH= JAX_PLATFORMS=cpu python examples/02_customising.py
+Run: env JAX_PLATFORMS=cpu python examples/02_customising.py
 """
 
 import jax.numpy as jnp

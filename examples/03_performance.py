@@ -6,53 +6,17 @@ linear_predictor_calc="update" (O(n) per coordinate) against "naive"
 
 THE claim (reference README.md:11-16): total runtime is LINEAR in the
 parameter count d with the incremental update, QUADRATIC with the naive
-recompute.  The demonstration that matters is the recorded TPU curve
-below (results/round*_eta_comptime_tpu.jsonl, produced by
-scripts/eta_comptime_tpu.py on a v5e chip): log-log slopes ~0.7 (update)
-vs ~1.2 (naive) with the gap widening to ~3x at d=4000.  The locally-run
-CPU sweep that follows reproduces the reference's *methodology*
-(R/measure_performance.R:113-151) but at these small d its timings are
-dominated by per-sweep dispatch overhead, not by the O(n) vs O(n d)
-arithmetic — read it as "how to produce the curve", not as the evidence.
+recompute.  This sweep reproduces the reference's *methodology*
+(R/measure_performance.R:113-151).  Run on the CPU at these small d its
+timings are dominated by per-sweep dispatch overhead, not by the O(n) vs
+O(n d) arithmetic — read it as "how to produce the curve"; the curve that
+tests the claim is the same call on the GPU at larger d.
 
-Run: env PYTHONPATH= JAX_PLATFORMS=cpu python examples/03_performance.py
+Run: env JAX_PLATFORMS=cpu python examples/03_performance.py
 """
-
-import glob
-import json
-import os
-
-import numpy as np
 
 import mcmcglm_tpu as mg
 
-# -- 1. the recorded TPU evidence ------------------------------------------
-_repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-rec = sorted(glob.glob(os.path.join(_repo, "results",
-                                    "round*_eta_comptime_tpu.jsonl")))
-if rec:
-    rows = [json.loads(ln) for ln in open(rec[-1]) if ln.strip()]
-    rows = [r for r in rows if "seconds" in r]  # drop the summary line
-    print(f"Recorded TPU curve ({os.path.basename(rec[-1])}, v5e, "
-          f"n={rows[0]['n']}, {rows[0]['n_samples']} sweeps, "
-          f"{rows[0]['n_chains']} chains):")
-    print(f"{'d':>6} {'update (s)':>11} {'naive (s)':>10} {'ratio':>6}")
-    byd = {}
-    for r in rows:
-        byd.setdefault(r["d"], {})[r["method"]] = r["seconds"]
-    for d in sorted(byd):
-        u, nv = byd[d].get("update"), byd[d].get("naive")
-        if u and nv:
-            print(f"{d:>6} {u:>11.2f} {nv:>10.2f} {nv / u:>6.2f}")
-    for meth in ("update", "naive"):
-        ds = np.array([d for d in sorted(byd) if meth in byd[d]], float)
-        ts = np.array([byd[d][meth] for d in sorted(byd) if meth in byd[d]])
-        slope = np.polyfit(np.log(ds), np.log(ts), 1)[0]
-        print(f"log-log slope, {meth}: {slope:.2f}")
-    print("(update scales ~linearly, naive ~superlinearly — the CGGibbs "
-          "O(n)-per-coordinate claim, measured on TPU)\n")
-
-# -- 2. the reference's methodology, run locally ---------------------------
 print("Local sweep (reference methodology; small-d timings are "
       "dispatch-bound on CPU):")
 df = mg.compare_eta_comptime_across_nvars(

@@ -1,10 +1,10 @@
 """Multi-chip sharded sampling + pooled diagnostics.
 
 Runs 64 chains of a logistic GLM over a (chain x obs) device mesh — on a
-TPU pod slice this is real multi-chip execution; on CPU run it with 8
+multi-GPU host this is real multi-device execution; on CPU run it with 8
 virtual devices:
 
-  env PYTHONPATH= JAX_PLATFORMS=cpu \
+  env JAX_PLATFORMS=cpu \
       XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python examples/04_multichip.py
 """

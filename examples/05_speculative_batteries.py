@@ -1,33 +1,23 @@
-"""Speculative proposal batteries: the round-2 throughput lever.
+"""Speculative proposal batteries: the freerun throughput lever.
 
 The free-running CGGibbs automaton (mcmcglm_tpu/freerun.py) advances every
 chain by one slice-kernel target evaluation per device pass.  In Neal's
 shrinkage procedure the ALL-REJECTIONS proposal path is deterministic given
 the uniforms, so K proposals can be generated up front, evaluated in one
-fused pass, and the first acceptor selected — identical in law to the
+pass, and the first acceptor selected — identical in law to the
 one-at-a-time kernel (the reference's qslice::slice_stepping_out schedule,
-/root/reference/R/mcmcglm.R:258-261) but with passes-per-coordinate dropping
-from the mean evaluation count (~2.8 at adapted widths) toward ~1.
+R/mcmcglm.R:258-261) but with passes-per-coordinate dropping from the mean
+evaluation count toward ~1.
 
-Three Pallas kernels make the battery pay on TPU (the XLA broadcast
-re-streams eta per proposal and forfeits the win):
+The battery is one XLA (C, K, n) broadcast + reduce over the gathered X^T
+rows (ops/freerun_passes.py).  On an H100 the K=4 pass gives a higher
+min-ESS/s than the classic pass at the p=1000 logistic north star, which
+is why ``mcmcglm`` enables spec_k=4 on accelerators (PERF.md has the
+measured rates).
 
-  battery_impl="pallas"   one HBM read of eta + the gathered X^T row
-                          evaluates all K proposals (measured 1.41x).
-  battery_impl="pallas2"  additionally replays the acceptance decision
-                          in-kernel and writes the committed eta
-                          (another 1.40x).
-  battery_impl="pallas3"  moves the X^T row gather itself into the kernel
-                          (a (1, S, 128) block of the 3-D (d, S, 128)
-                          layout, chosen by a scalar-prefetched per-chain
-                          coordinate index): ~3 (C, n) HBM streams per
-                          pass; measured 1.2-1.4x pallas2 in same-process
-                          A/B — the accelerator default
-                          (results/round3_battery_probes.log).
+Run from the repo root:
 
-Run from the repo root (any backend; Pallas runs in interpret mode on CPU):
-
-  env PYTHONPATH=. JAX_PLATFORMS=cpu python examples/05_speculative_batteries.py
+  env JAX_PLATFORMS=cpu python examples/05_speculative_batteries.py
 """
 
 import time
@@ -44,7 +34,7 @@ y = rng.binomial(1, 1.0 / (1.0 + np.exp(-X @ beta_true))).astype(float)
 
 for engine_opts in (
     {},  # classic: one evaluation per pass
-    {"spec_k": 4},  # K-speculative battery, impl resolved automatically
+    {"spec_k": 4},  # K-speculative battery
 ):
     t0 = time.perf_counter()
     fit = mg.mcmcglm(
@@ -60,6 +50,6 @@ for engine_opts in (
         f"mean evals/sweep = {float(fit.n_evals.mean()):.0f}"
     )
 
-# The two fits target the same posterior (same kernel in law); on TPU the
-# speculative one completes the same sweeps in ~half the passes.  See
-# results/README.md for the measured implementation ladder.
+# The two fits target the same posterior (same kernel in law); on the GPU
+# the speculative one completes the same sweeps in fewer, costlier passes
+# (PERF.md has the measured rates).

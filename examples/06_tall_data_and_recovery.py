@@ -2,7 +2,7 @@
 
 Round-5 surface tour: (1) the obs-sharded freerun engine — the fast
 automaton over a (chain x obs) mesh, for datasets whose design matrix or
-linear-predictor slab exceeds one chip's HBM; (2) streaming min-ESS on
+linear-predictor slab exceeds one card's memory; (2) streaming min-ESS on
 device — the split-chain autocovariance accumulator that replaces the
 (C, K, d) host gather with a (d,) vector; (3) the latent (Li & Walker
 2020) and doubling (Neal 2003, Figs. 4-6) slice kernels running at full
@@ -11,7 +11,7 @@ automaton.
 
 On CPU run with 8 virtual devices:
 
-  env PYTHONPATH= JAX_PLATFORMS=cpu \
+  env JAX_PLATFORMS=cpu \
       XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python examples/06_tall_data_and_recovery.py
 """

@@ -1,11 +1,11 @@
-"""mcmcglm_tpu — a TPU-native Bayesian-GLM inference engine.
+"""mcmcglm_tpu — a Bayesian-GLM inference engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the R package
-``mcmcglm`` (reference mounted at /root/reference): CGGibbs coordinate-wise
-slice-within-Gibbs sampling for generalized linear models with arbitrary
-exponential-family response + link and arbitrary priors on the coefficient
-vector, plus conjugate/NUTS/HMC/VI cross-validation samplers, massively
-parallel chains over TPU device meshes, and pooled convergence diagnostics.
+``mcmcglm``: CGGibbs coordinate-wise slice-within-Gibbs sampling for
+generalized linear models with arbitrary exponential-family response + link
+and arbitrary priors on the coefficient vector, plus conjugate/NUTS/HMC/VI
+cross-validation samplers, massively parallel chains over GPU device
+meshes, and pooled convergence diagnostics.
 """
 
 __version__ = "0.1.0"
@@ -16,7 +16,6 @@ from .diagnostics import ess, split_rhat, summarize
 from .engine import CGGibbs, ChainState, EngineConfig
 from .formula import Design, build_design, design_from_arrays
 from .freerun import FreeRunCGGibbs, FreeRunState
-from .fused import FusedCGGibbs
 from .perf import (
     compare_eta_comptime,
     compare_eta_comptime_across_nvars,

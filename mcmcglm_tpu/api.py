@@ -1,9 +1,9 @@
 """The top-level ``mcmcglm`` entry point.
 
-TPU-native re-design of the reference's single public fitting function
+JAX re-design of the reference's single public fitting function
 (R/mcmcglm.R:147-299): same conceptual signature — formula + data + family +
 beta_prior + slice tuning — returning a results object with
-samples/coef/quantile/trace_plot methods, with TPU-first extensions
+samples/coef/quantile/trace_plot methods, with accelerator-first extensions
 (multiple vmapped chains, explicit PRNG seed, dtype policy, array-first
 input, chunked execution with progress reporting).
 
@@ -69,7 +69,7 @@ def mcmcglm(
     Mirrors the reference's argument surface (R/mcmcglm.R:147-157):
 
     - ``formula`` + ``data`` — R-style formula over a DataFrame/dict, OR
-      ``X=', ``y=`` arrays directly (TPU-first path).
+      ``X=``, ``y=`` arrays directly.
     - ``family`` — string / factory / Family (reference check_family,
       R/family_data_processing.R:3-16).
     - ``beta_prior`` — a Distribution (iid over coordinates), a list of
@@ -92,10 +92,10 @@ def mcmcglm(
       count dramatically when w is mis-specified (measured 8318 -> 504
       evals/sweep from w=0.01 on a p=100 logistic model); the reference has
       no adaptation at all (w is a raw tuning parameter, R/mcmcglm.R:40-41).
-    - ``engine`` — "auto" / "freerun" / "xla" / "fused".
-      "freerun" is the lockstep-free automaton engine (freerun.py):
-      measured 688 vs 151-173 min-ESS/s for the XLA engine on a TPU v5e
-      chip (C=256 on the p=1000 logistic north-star).  It
+    - ``engine`` — "auto" / "freerun" / "xla".
+      "freerun" is the lockstep-free automaton engine (freerun.py): every
+      chain advances one evaluation per device pass instead of waiting
+      for the slowest lane of a vmapped while loop.  It
       adapts per-(chain, coordinate) slice widths during burn-in
       (burn-in draws are discarded, so adaptation there is semantically
       free) and samples with the frozen widths using the m=1 shrink-only
@@ -106,20 +106,13 @@ def mcmcglm(
       the speculative battery automaton; doubling runs the classic
       one-evaluation pass with its Fig. 6 back-test unrolled to extra
       automaton phases (ops/freerun_doubling.py).  The "naive" mode
-      runs on the general "xla" scan/while engine.  "fused" is the
-      whole-sweep Pallas kernel
-      (TPU + iid prior + stepping_out only; ~0.83x the XLA engine at
-      C=256 — kept for kernel-level experimentation).
+      runs on the general "xla" scan/while engine.
     - ``engine_opts`` — extra constructor options for the freerun engines
       (e.g. ``{"shrink_only": False}`` to sample with the full stepping-out
       schedule for heavy-tailed conditionals, ``{"adapt_c": 60.0}``,
       ``{"eval_cache": "per_obs"}``, ``{"spec_k": 1}`` to disable the
       K-speculative proposal batteries that the freerun path enables by
-      default on accelerators — spec_k=4 through the "pallas3" in-kernel-
-      gather battery (~3 (C, n) HBM streams/pass; both Pallas batteries
-      beat the classic pass ~1.4-2x in every measured window, their
-      relative order is window-dependent —
-      results/round3_battery_probes.log), identical in law).  Ignored by
+      default on accelerators — spec_k=4, identical in law).  Ignored by
       other engines.
     - ``mesh`` — a ``jax.sharding.Mesh`` (see ``parallel.make_mesh``) to
       run multi-chip: the freerun engine shards chains (one independent
@@ -162,19 +155,8 @@ def mcmcglm(
     slice_spec = qslice_fun if qslice_fun is not None else slice_fn
     kernel = get_slice_kernel(slice_spec) if sample_method == "slice_sampling" else None
 
-    from .models.priors import IIDPrior
-    from .ops.pallas_cggibbs import MAX_FUSED_N
-
-    use_fused = False
     use_freerun = False
     if sample_method == "slice_sampling" and kernel is not None:
-        fused_eligible = (
-            isinstance(prior, IIDPrior)
-            and kernel.name == "stepping_out"
-            and linear_predictor_calc == "update"
-            and -(-design.X.shape[0] // 128) * 128 <= MAX_FUSED_N
-            and n_chains % 8 == 0
-        )
         # latent / elliptical / genelliptical run at full freerun speed
         # too: all are pure shrinkage (latent on a carried bracket, the
         # elliptical pair on the angle bracket), so the automaton reuses
@@ -190,15 +172,7 @@ def mcmcglm(
             )
             and linear_predictor_calc == "update"
         )
-        if engine == "fused":
-            if not fused_eligible:
-                raise ValueError(
-                    "engine='fused' requires stepping_out + iid prior + "
-                    "linear_predictor_calc='update', n within the VMEM budget, "
-                    "and n_chains a multiple of 8"
-                )
-            use_fused = True
-        elif engine == "freerun":
+        if engine == "freerun":
             if not freerun_eligible:
                 raise ValueError(
                     "engine='freerun' requires a registered qslice-style "
@@ -208,11 +182,9 @@ def mcmcglm(
                 )
             use_freerun = True
         elif engine == "auto":
-            # round-1 measurements on v5e (p=1000 logistic, C=256):
-            # freerun 404 > xla 151-173 > fused 308*0.83 chain-sweeps/s
             use_freerun = freerun_eligible
         elif engine != "xla":
-            raise ValueError("engine must be 'auto', 'freerun', 'xla' or 'fused'")
+            raise ValueError("engine must be 'auto', 'freerun' or 'xla'")
     elif sample_method == "normal-normal" and engine == "freerun":
         # exact conjugate coordinate draws inside the freerun pass loop
         # (gaussian/identity + diagonal normal prior; the reference's
@@ -223,19 +195,7 @@ def mcmcglm(
         # of normal-normal as the testing method (R/mcmcglm.R:32-34).
         use_freerun = True
 
-    if use_fused:
-        from .fused import FusedCGGibbs
-
-        if mesh is not None:
-            raise ValueError("engine='fused' is single-chip; mesh unsupported")
-        if design.offset is not None:
-            raise ValueError(
-                "formula offset() terms are not supported by engine='fused'"
-            )
-        sampler = FusedCGGibbs(
-            design.X, design.y, fam, prior, extra=extra, tuning=tuning
-        )
-    elif use_freerun:
+    if use_freerun:
         engine_opts = dict(engine_opts or {})
         if kernel is not None and kernel.name in (
             "latent", "elliptical", "genelliptical", "quantile", "doubling"
@@ -248,12 +208,10 @@ def mcmcglm(
             # speculative battery does not compose with its back-test)
             engine_opts.pop("spec_k", None)
         elif "spec_k" not in engine_opts and jax.default_backend() != "cpu":
-            # accelerator default: K-speculative batteries through the
-            # fused Pallas evaluator — ~2.0x the classic pass on the
-            # north-star config (results/README.md ladder), identical in
+            # accelerator default: K-speculative batteries, identical in
             # law (tests/test_freerun_spec.py).  CPU keeps spec_k=1: the
-            # XLA battery is compute-bound there, so K-fold extra
-            # evaluations cost wall-clock instead of riding free.
+            # battery is compute-bound there, so K-fold extra evaluations
+            # cost wall-clock instead of riding free.
             engine_opts["spec_k"] = 4
         if mesh is not None:
             from .parallel.mesh import OBS_AXIS
@@ -261,8 +219,6 @@ def mcmcglm(
             if mesh.shape.get(OBS_AXIS, 1) > 1:
                 # (chain x obs) mesh: the tall-data fast path — per-shard
                 # partial log-lik sums psum'd over the obs axis each pass
-                # (the Pallas batteries are layout-incompatible; the
-                # obs-sharded class pins the XLA battery itself)
                 from .parallel.freerun_obs_sharded import (
                     ObsShardedFreeRunCGGibbs,
                 )
@@ -334,13 +290,7 @@ def mcmcglm(
 
     t0 = time.perf_counter()
     burnin_out = burnin
-    if use_fused:
-        betas, n_evals, _ = sampler.sample(
-            jax.random.key(seed), n_samples, n_chains=n_chains,
-            chunk_size=chunk_size, progress=progress_cb,
-        )
-        n_evals = np.broadcast_to(n_evals, (n_chains, n_samples))
-    elif use_freerun:
+    if use_freerun:
         # adaptive burn-in (burn-in draws are discarded anyway), then
         # frozen-width shrink-only sampling
         state = sampler.init(jax.random.key(seed), n_chains)
@@ -396,7 +346,7 @@ def mcmcglm(
             n_evals = np.diff(
                 np.concatenate([nev_warm[:, None], cum], axis=1), axis=1
             )
-    elif thin > 1 and sample_method == "slice_sampling" and not use_fused:
+    elif thin > 1 and sample_method == "slice_sampling":
         # memory-bounded collection: burn in, then keep every thin-th draw
         # while streaming Welford moments on device (engine.run_thinned)
         state = sampler.init(jax.random.key(seed), n_chains)

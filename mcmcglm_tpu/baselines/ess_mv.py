@@ -7,14 +7,14 @@ and slices the LIKELIHOOD along the ellipse
 
     beta(theta) = (beta - mu0) cos(theta) + (nu - mu0) sin(theta) + mu0.
 
-TPU-native trick: the likelihood needs eta(theta) = X beta(theta), and the
+Device-friendly trick: the likelihood needs eta(theta) = X beta(theta), and the
 ellipse is linear in beta — so
 
     eta(theta) = eta_beta cos(theta) + eta_nu sin(theta) + eta_mu0 terms,
 
 meaning ONE matvec per update (for the freshly drawn nu) and pure
 elementwise (C, n) combinations per slice evaluation.  Each evaluation is
-MXU-free and HBM-light; the d-dimensional update costs O(matvec + evals*n)
+matmul-free and memory-light; the d-dimensional update costs O(matvec + evals*n)
 instead of the CGGibbs sweep's O(d * evals * n).  Mixing per update is
 lower than a full Gibbs sweep (one ellipse vs d conditionals), so which
 engine wins in ESS/s is problem-dependent — expose both and measure.
@@ -101,7 +101,8 @@ class EllipticalSliceGLM:
         key, k_nu, k_level, k_theta, k_shrink = jax.random.split(key, 5)
         # auxiliary draw and its linear predictor (the single matvec)
         z = jax.random.normal(k_nu, (self.d,), self.dtype)
-        nu_c = z @ self._chol.T  # nu - mu0
+        nu_c = jnp.matmul(z, self._chol.T,
+                          precision=lax.Precision.HIGHEST)  # nu - mu0
         eta_nu = matvec(nu_c, self.Xt)
         beta_c = beta - self._mu0
         eta_c = eta - self._eta_mu0

@@ -5,7 +5,7 @@ posterior as the CGGibbs engine.  Pure-JAX, scan-based, vmapped over chains;
 the reference package has no gradient-based sampler at all (it exists to
 benchmark Gibbs *against* HMC — the arXiv:2410.03630 question the package
 is built around, R/mcmcglm.R:5-8 — so providing the HMC side natively
-completes that comparison on TPU).
+completes that comparison on the device).
 
 Adaptation (Stan-flavoured, simplified to three windows):
   * dual averaging of the step size toward a target accept rate

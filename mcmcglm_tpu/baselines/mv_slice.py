@@ -2,7 +2,7 @@
 
 Completes the qslice surface beyond what the reference can actually use:
 the reference's CGGibbs loop hands each slice function a SCALAR coordinate
-(``x = beta_j``, /root/reference/R/mcmcglm.R:258-261), so qslice's ``*_mv``
+(``x = beta_j``, reference R/mcmcglm.R:258-261), so qslice's ``*_mv``
 functions — whose ``x`` is the whole vector — could never run there
 despite the "all functions from qslice" phrasing (mcmcglm.R:35-39;
 decision recorded in PARITY.md).  Here they exist as standalone
@@ -21,12 +21,12 @@ whole-vector engines on the identical log-posterior, like
   independent per-coordinate pseudo-targets map the posterior to the unit
   hypercube; shrinkage proposals on [0,1]^d need no width tuning at all.
 
-TPU shape: unlike CGGibbs there is no incremental eta trick for box
+Device shape: unlike CGGibbs there is no incremental eta trick for box
 proposals (a fresh proposal moves EVERY coordinate), so each evaluation
-is a full (C, d) @ (d, n) matvec — which is exactly what the MXU is for:
+is a full (C, d) @ (d, n) matvec — which is exactly what matrix units are for:
 chains batch into one matmul per evaluation (the reference's R versions
 pay the same O(nd) per evaluation on a scalar CPU).  Proposal generation,
-per-coordinate shrinkage and the accept test are elementwise VPU work.
+per-coordinate shrinkage and the accept test are elementwise work.
 Mixing per update (one box draw vs d conditionals) is problem-dependent —
 these are completeness/baseline engines; the flagship stays FreeRunCGGibbs.
 """

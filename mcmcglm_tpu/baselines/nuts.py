@@ -1,4 +1,4 @@
-"""No-U-Turn Sampler baseline — iterative, recursion-free, TPU-friendly.
+"""No-U-Turn Sampler baseline — iterative, recursion-free, accelerator-friendly.
 
 Cross-validation sampler required by BASELINE.json ("NUTS/HMC ... baselines
 on the same log-density").  The reference package exists to benchmark Gibbs

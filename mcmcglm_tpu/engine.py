@@ -1,6 +1,6 @@
-"""The CGGibbs sampling engine: coordinate-wise slice-within-Gibbs on TPU.
+"""The CGGibbs sampling engine: coordinate-wise slice-within-Gibbs in JAX.
 
-TPU-native re-design of the reference's hot loop (R/mcmcglm.R:226-274):
+Re-design of the reference's hot loop (R/mcmcglm.R:226-274):
 the R double loop (k over samples, j over coordinates) becomes
 
     lax.scan over sweeps
@@ -16,21 +16,21 @@ Key design decisions:
 
   * The design matrix is stored transposed, ``Xt`` of shape (d, n): the
     coordinate scan consumes contiguous (n,) rows, so each slice evaluation
-    streams a contiguous vector — ideal VPU/HBM access (the reference
+    streams a contiguous vector — ideal memory access (the reference
     gathers a column ``X[, j]`` per coordinate, R/mcmcglm.R:268).
   * State per chain is (beta, eta, ld_cur, kernel_state, key):
     eta is carried and updated incrementally in O(n) per coordinate (the
     CGGibbs trick, R/glm_utils.R:126-132); ld_cur caches per-observation log
     densities at the current state, making slice evaluations *relative* —
-    O(1)-magnitude comparisons that are float32-safe on TPU (see
+    O(1)-magnitude comparisons that are float32-safe (see
     models/potential.py).
   * Only beta samples are collected; the reference retains the full
     {beta, eta, mu} history for every iteration (O(K·(n+d)) memory,
     R/mcmcglm.R:188,227) — deliberately not copied (SURVEY.md §7.5).
   * The "naive" linear-predictor mode recomputes eta with a full matvec per
     slice evaluation, kept for benchmarking the CGGibbs claim
-    (R/glm_utils.R:206-208, linear_predictor_calc="naive") — on TPU that
-    matvec is a (chains, d) @ (d, n) MXU matmul.
+    (R/glm_utils.R:206-208, linear_predictor_calc="naive") — on a device
+    that matvec is a (chains, d) @ (d, n) matmul.
   * The conjugate "normal-normal" coordinate sampler (R/sampling.R:19-35) is
     implemented against the posterior precision matrix so each conditional
     is an O(d) row product, and — unlike the reference, which solves two
@@ -241,16 +241,19 @@ class CGGibbs:
             y = y - self.offset.astype(dtype)
         sigma = jnp.asarray(self.extra.get("sd", 1.0), dtype)
         cov_prior = jnp.asarray(self.prior.cov_beta(), dtype)
+        # the conjugate oracle: full f32 products (a GPU may otherwise
+        # run an f32 matmul in TF32, ~3 decimal digits)
+        mm = partial(jnp.matmul, precision=lax.Precision.HIGHEST)
         if self.obs_weights is not None:
             W = self.obs_weights.astype(dtype)
-            XtWX = (X * W[:, None]).T @ X
-            XtWy = X.T @ (W * y)
+            XtWX = mm((X * W[:, None]).T, X)
+            XtWy = mm(X.T, W * y)
         else:
-            XtWX = X.T @ X
-            XtWy = X.T @ y
+            XtWX = mm(X.T, X)
+            XtWy = mm(X.T, y)
         prec_post = XtWX / sigma**2 + jnp.linalg.inv(cov_prior)
         cov_post = jnp.linalg.inv(prec_post)
-        mu_post = cov_post @ XtWy / sigma**2
+        mu_post = mm(cov_post, XtWy) / sigma**2
         self._conj_mu = mu_post.astype(self.config.dtype)
         self._conj_prec = prec_post.astype(self.config.dtype)
 
@@ -389,7 +392,7 @@ class CGGibbs:
         The reference has no adaptation at all — w is a fixed user tuning
         parameter (R/mcmcglm.R:40-41); adaptive widths cut the lockstep
         slice-evaluation count across vmapped chains, which is the dominant
-        cost term on TPU.
+        cost term on an accelerator.
         """
         if self.kernel is None or self.kernel.name not in _ADAPTIVE_KERNELS:
             state, betas, nev = self.run(state, n_steps)

@@ -1,6 +1,6 @@
 """Formula/data ingestion: a lightweight model-matrix builder.
 
-TPU-native replacement for the reference's use of R's model-frame machinery
+JAX-side replacement for the reference's use of R's model-frame machinery
 (``stats::model.frame`` / ``model.matrix`` / ``model.response``; reference:
 R/family_data_processing.R:20-36).  Accepts a pandas DataFrame (or a dict of
 1-D arrays) plus an R-style formula string and produces the response vector

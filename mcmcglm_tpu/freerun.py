@@ -1,4 +1,4 @@
-"""Free-running CGGibbs: lockstep-free slice-within-Gibbs for TPU.
+"""Free-running CGGibbs: lockstep-free slice-within-Gibbs on accelerators.
 
 The throughput problem this solves
 ----------------------------------
@@ -6,9 +6,9 @@ The scan/while CGGibbs engine (engine.py) vmaps Neal's stepping-out +
 shrinkage ``lax.while_loop`` over chains, so every loop runs until the
 SLOWEST chain lane converges: with ~5 useful target evaluations per
 coordinate (mean) the block executes 12-20 (the max across 256 lanes).
-Measured on TPU v5e the sampler is compute-bound on the per-observation
-log-density transcendentals (softplus/exp over (chains, n) per evaluation),
-so those wasted lockstep evaluations are wasted wall-clock one-for-one.
+Each evaluation is a (chains, n) sweep of log-density transcendentals
+(softplus/exp), so those wasted lockstep evaluations are wasted device time
+one-for-one.
 
 The design
 ----------
@@ -32,8 +32,8 @@ Per pass, for all C chains fused into one XLA computation:
      where the committed-state log likelihood is cached either per
      observation ((C, n); exact relative differences, the float32-safe
      trick of models/potential.py) or as the reduced scalar ((C,);
-     eval_cache="scalar" — drops two of the five (C, n) HBM streams per
-     pass, which is the pass's bottleneck on TPU)
+     eval_cache="scalar" — drops two of the five (C, n) device-memory
+     streams per pass)
   3. advance each lane's automaton with O(1) scalar selects:
      stepping-out endpoint tests, shrinkage accept/reject, interval
      updates — exactly the slice_stepping_out schedule (Neal 2003).
@@ -50,8 +50,8 @@ the rows it actually changed.
 The reference's hot loop is R/mcmcglm.R:226-274 (k over samples, j over
 coordinates, one univariate slice draw per (k, j) with the O(n)
 incremental eta update of R/glm_utils.R:126-132); this engine reproduces
-that exact per-chain schedule while keeping the TPU VPU saturated with
-useful evaluations.  Equivalence with :class:`~mcmcglm_tpu.engine.CGGibbs`
+that exact per-chain schedule while keeping every lane of the device busy
+with useful evaluations.  Equivalence with :class:`~mcmcglm_tpu.engine.CGGibbs`
 is distributional (tests/test_freerun.py): same kernel, different PRNG
 stream consumption order.
 """
@@ -170,8 +170,8 @@ class FreeRunCGGibbs:
         # sampler at freerun pass rates.  Latent is pure shrinkage with a
         # per-(chain, coordinate) carried bracket width s (refreshed at
         # every coordinate begin as s' = 2|l - b0| + Exp(rate)), so the
-        # entire pass machinery — fused evaluation batteries (incl.
-        # pallas2/pallas3), eval caches, commits, sharding — is reused
+        # entire pass machinery — evaluation batteries, eval caches,
+        # commits, sharding — is reused
         # unchanged; only the coordinate-begin register construction
         # differs (_begin_coord_latent) and the logw buffer carries log s
         # instead of adapted stepping-out widths.  This closes the
@@ -226,6 +226,13 @@ class FreeRunCGGibbs:
             else 2 if slice_kernel == "doubling"
             else 3
         )
+        # one K-proposal battery exists, the XLA formulation in
+        # ops/freerun_passes.py; "auto" stays the default spelling
+        if battery_impl not in ("auto", "xla"):
+            raise ValueError(
+                "battery_impl must be 'auto' or 'xla' (the fused Pallas "
+                f"batteries were removed), got {battery_impl!r}"
+            )
         if slice_kernel == "doubling":
             if spec_k != 1:
                 raise ValueError(
@@ -234,13 +241,6 @@ class FreeRunCGGibbs:
                     "recursion does not compose with the Fig. 6 "
                     "back-test (ops/freerun_doubling.py)"
                 )
-            if battery_impl not in ("auto", "xla"):
-                raise ValueError(
-                    "slice_kernel='doubling' runs the classic "
-                    "one-evaluation pass; drop battery_impl="
-                    f"{battery_impl!r}"
-                )
-            battery_impl = "xla"  # no Pallas padding / 3-D eta layout
         # coord_sampler="conjugate": exact normal coordinate conditionals
         # (gaussian family + identity link + diagonal normal prior only;
         # the reference's "normal-normal" validation path, R/sampling.R:
@@ -252,30 +252,20 @@ class FreeRunCGGibbs:
                 f"{coord_sampler!r}"
             )
         self.coord_sampler = coord_sampler
-        if coord_sampler == "conjugate":
-            if battery_impl not in ("auto", "xla"):
-                raise ValueError(
-                    "coord_sampler='conjugate' does not use the slice "
-                    "proposal batteries; drop battery_impl="
-                    f"{battery_impl!r}"
-                )
-            battery_impl = "xla"  # no Pallas padding / 3-D eta layout
         self.family: Family = check_family(family)
         # The engine only ever COMPARES log densities across eta values
         # (slice level tests; the committed-state cache is differenced),
         # so it evaluates the RELATIVE form: eta-independent per-obs
         # constants dropped.  Exact (constants cancel), cheaper (no
-        # lgamma(y+1) streams), and required for Pallas batteries on
-        # poisson/negbin/gamma — Mosaic cannot lower lgamma at all.
+        # lgamma(y+1) streams).
         self._ld_eta = self.family.log_density_eta_rel
         self.prior = prior
         self.dtype = dtype
         X = jnp.asarray(X, dtype)
         # x_storage="bf16": the design matrix is ROUNDED to bfloat16 once,
-        # up front, and every consumer — the init matvec, the XLA row
-        # gathers, AND the pallas3 in-kernel row stream (which then ships
-        # the rows as actual bf16, halving the X-row bytes of the
-        # 3-stream pass) — computes in f32 on the SAME rounded values.
+        # up front, and every consumer — the init matvec and the row
+        # gathers — computes in f32 on the SAME rounded values (rows are
+        # still stored f32).
         # The engine is therefore an EXACT sampler for the posterior of
         # X' = bf16(X): there is no within-sampler error to compare
         # against the Exp(1) slice level at all; the only change is a
@@ -286,12 +276,6 @@ class FreeRunCGGibbs:
         # frozen-offset bug class: a MIXED-precision design (f32 init
         # matvec, bf16 updates) would freeze the per-chain residual
         # (X - X') beta0 into eta for the chain's lifetime.
-        # MEASURED (results/round4_pass_budget2.log, n=10k): SLOWER than
-        # f32 on the north-star config — the per-chain row gather is
-        # DMA-latency-bound there, and halving bytes shrinks each DMA
-        # instead of removing any.  Kept as an option for much larger n
-        # (where the row DMAs are big enough to be bandwidth-limited)
-        # and for HBM-capacity-constrained problems; default stays f32.
         if x_storage not in ("f32", "bf16"):
             raise ValueError(
                 f"x_storage must be 'f32' or 'bf16', got {x_storage!r}"
@@ -371,12 +355,9 @@ class FreeRunCGGibbs:
         # EWMA estimate of the coordinate's conditional center); the log
         # scale toward log(pseudo_c * |draw - loc_j|), i.e. pseudo_c x
         # the mean absolute deviation.  Motivation: the fixed global
-        # pseudo-target's measured failure modes are exactly (a)
-        # coordinates sitting far from loc (the min-ESS coordinate of the
-        # global-scale ladder, results/round5_qscale_ladder.jsonl) and
-        # (b) scale mismatch on narrow/skewed conditionals
-        # (poisson/Laplace pair, results/round5_quantile_generalization
-        # .jsonl).  The per-lane values live in QuantileState.qloc and
+        # pseudo-target's failure modes are exactly (a) coordinates
+        # sitting far from loc and (b) scale mismatch on narrow/skewed
+        # conditionals.  The per-lane values live in QuantileState.qloc and
         # the (otherwise unused) logw buffer; initialised from
         # pseudo_loc / pseudo_scale.
         self.q_adapt = bool(tuning.get("pseudo_adapt", False))
@@ -386,7 +367,6 @@ class FreeRunCGGibbs:
                 "pseudo_adapt=True is a quantile-kernel tuning parameter; "
                 f"drop it for slice_kernel={slice_kernel!r}"
             )
-        user_reduce_fn = reduce_fn is not None
         if obs_weights is not None:
             ow = jnp.asarray(obs_weights, dtype).reshape(-1)
             if ow.shape[0] != self.n:
@@ -404,30 +384,19 @@ class FreeRunCGGibbs:
         self._adapt_rate = 0.08
         # warmup width target: w ~= adapt_c * typical accepted move.  Larger
         # c widens intervals -> better per-sweep mixing (less slice
-        # truncation) at the cost of more shrink evaluations.  Measured
-        # frontier on the p=1000 logistic north-star (TPU v5e, C=256,
-        # shrink-only): c=3 -> 1.3 evals/coord but ESS/draw ~0.1;
-        # c=40 -> 3.1 evals/coord with ESS/draw ~0.7 and the best ESS/s
-        # (391 min-ESS/s vs 363 for full stepping-out at 4.9 evals/coord);
-        # c>=60 is flat at spec_k=1.  With a K=4 battery wider widths are
-        # cheaper (extra evaluations can ride in the same fused pass) and
-        # one same-window pair measured c=80 as free (+10% ESS/s,
-        # results/round3_battery_probes.log session 7), but two later
-        # same-process bracketed probes (sessions 8-9) measured c=80 at
-        # 0.84x the sweeps/s with the ESS/draw gain only partially
-        # compensating — the frontier is window-dependent on this
-        # hardware, so the default stays at the robust c=40; pass
-        # adapt_c=80 explicitly to trade pass cost for per-draw mixing.
-        self._adapt_c_arg = adapt_c  # resolved after battery_impl below
+        # truncation) at the cost of more shrink evaluations: small c
+        # gives ~1.3 evals/coord but poor per-draw mixing, c=40 ~3
+        # evals/coord at several times the ESS per draw.  With a K-proposal
+        # battery wider widths cost less (extra evaluations share a pass);
+        # pass adapt_c explicitly to trade pass cost for per-draw mixing.
+        self.adapt_c = float(adapt_c if adapt_c is not None else 40.0)
         # eval_cache: how the committed-state log likelihood is cached for
         # the relative slice comparison f = logL(prop) - logL(current).
         #   "per_obs": cache per-observation log densities (C, n); reduce
         #       the per-observation DIFFERENCES — exact cancellation, but
-        #       two extra (C, n) HBM streams per pass (read + refresh).
+        #       two extra (C, n) memory streams per pass (read + refresh).
         #   "scalar": cache the reduced scalar (C,); compare full-magnitude
-        #       sums — 5 -> 3 (C, n) streams per pass (the pass is HBM-
-        #       bandwidth-bound on TPU; measured 1.4-1.6x pass rate at the
-        #       p=1000 logistic north star), at roundoff ~ eps *
+        #       sums — 5 -> 3 (C, n) streams per pass, at roundoff ~ eps *
         #       sqrt(log2 n) * sum|ld| on the slice log scale.
         #   "auto": "scalar" when that roundoff estimate (from the log
         #       density at eta = 0) is far below the Exp(1) slice level,
@@ -473,17 +442,6 @@ class FreeRunCGGibbs:
         else:
             self.state_cls = FreeRunState
         self._run_cache: dict = {}
-
-        from .ops.freerun_batteries import configure_battery
-
-        configure_battery(
-            self, battery_impl, user_reduce_fn=user_reduce_fn, dtype=dtype,
-            obs_weights=obs_weights, ow=ow if obs_weights is not None else None,
-            x_storage=x_storage,
-        )
-        self.adapt_c = float(
-            self._adapt_c_arg if self._adapt_c_arg is not None else 40.0
-        )
         if coord_sampler == "conjugate":
             from .ops.freerun_conjugate import conjugate_params
 
@@ -495,70 +453,6 @@ class FreeRunCGGibbs:
             sd = self.extra.get("sd", jnp.asarray(1.0, dtype))
             self._conj_inv_sigma2 = 1.0 / (sd * sd)
 
-    def _battery_lowerable(self) -> bool:
-        """Compile-free probe of whether the selected Pallas battery's
-        kernel can lower on this backend (ops/freerun_batteries.py)."""
-        from .ops.freerun_batteries import battery_lowerable
-
-        return battery_lowerable(self)
-
-    def _resolve_battery(self, C: int) -> None:
-        """Finalise the auto battery selection for the first chain count
-        seen.  Every Pallas battery's block layout requires C % 8 == 0
-        (BC candidates are multiples of 8; pallas3's BC=1 fallback was
-        measured slower than the classic pass — results/README.md), so an
-        auto selection demotes to the XLA battery for odd chain counts.
-        Latched at first init: states carry the eta layout chosen here,
-        so re-resolving for a different C would orphan existing states.
-        Explicitly requested Pallas impls are never demoted."""
-        if self._battery_resolved:
-            return
-        self._battery_resolved = True
-        if (
-            self._battery_auto
-            and C % 8 != 0
-            and self.battery_impl in ("pallas", "pallas2", "pallas3")
-        ):
-            self.battery_impl = "xla"
-            self._eta3 = None  # 2-D eta layout (operands stay padded)
-
-    # -- Pallas K-proposal battery evaluators (ops/freerun_batteries.py) --
-    # Thin caching delegators: the kernels are built per chain count and
-    # cached; a ``None`` from a builder (odd chain count, VMEM overflow)
-    # is NOT cached so the per-C fallback chain re-decides at each call.
-
-    def _battery_fn(self, C: int):
-        fn = self._battery_cache.get(C)
-        if fn is None:
-            from .ops.freerun_batteries import build_battery
-
-            fn = build_battery(self, C)
-            if fn is not None:
-                self._battery_cache[C] = fn
-        return fn
-
-    def _battery2_fn(self, C: int):
-        key_ = ("v2", C)
-        fn = self._battery_cache.get(key_)
-        if fn is None:
-            from .ops.freerun_batteries import build_battery2
-
-            fn = build_battery2(self, C)
-            if fn is not None:
-                self._battery_cache[key_] = fn
-        return fn
-
-    def _battery3_fn(self, C: int):
-        key_ = ("v3", C)
-        fn = self._battery_cache.get(key_)
-        if fn is None:
-            from .ops.freerun_batteries import build_battery3
-
-            fn = build_battery3(self, C)
-            if fn is not None:
-                self._battery_cache[key_] = fn
-        return fn
-
     # -- coordinate initialisation (batched) ---------------------------------
 
     def _begin_coord(self, key, beta, logw, j, shrink_only, ubatch=None,
@@ -568,9 +462,8 @@ class FreeRunCGGibbs:
 
         ``ubatch`` (C, 3) optionally supplies the three uniforms (level,
         interval position, stepout split) drawn as ONE batched call by the
-        pass — each separate (C,)-draw pays a fixed threefry dispatch cost
-        (~22 us/pass total for the pass's six RNG ops,
-        results/round4_pass_budget2.log).  Same law either way.
+        pass — each separate (C,)-draw pays a fixed threefry dispatch
+        cost.  Same law either way.
 
         ``shrink_only=True`` is Neal's procedure with a step-out budget of
         m = 1: the randomly-positioned width-w interval is used directly
@@ -578,7 +471,7 @@ class FreeRunCGGibbs:
         endpoints are never evaluated) and the lane starts in the shrinkage
         phase with a uniform draw on (L, R).  This is an exact slice kernel
         for any w; with warmup-adapted widths (~3-4x the conditional scale)
-        it needs ~2-3 evaluations per coordinate — the TPU sampling
+        it needs ~2-3 evaluations per coordinate — the default sampling
         configuration.  ``shrink_only=False`` is the full stepping-out
         schedule (used for warmup, where widths may start badly sized).
 
@@ -879,7 +772,6 @@ class FreeRunCGGibbs:
         mean or a penalised-MLE point for very wide models, where a raw
         prior draw starts O(sqrt(d)) from the posterior bulk (the
         R reference always inits from the prior, R/mcmcglm.R:200-213)."""
-        self._resolve_battery(int(n_chains))
         if beta0 is not None:
             beta0 = jnp.asarray(beta0, self.dtype)
             if beta0.ndim == 1:
@@ -901,10 +793,6 @@ class FreeRunCGGibbs:
         ld0 = self._ld_eta(eta, self.y, self.extra)
         if self.eval_cache == "scalar":
             ld0 = self.reduce_fn(ld0)
-        if self._eta3 is not None:
-            # pallas3 carries eta in the (C, S, 128) kernel layout: one
-            # relayout here, none per pass
-            eta = eta.reshape(C, *self._eta3)
         w_init = (
             1.0 / self.rate if self.slice_kernel == "latent"
             else self.q_scale if self.q_adapt
@@ -931,11 +819,9 @@ class FreeRunCGGibbs:
 
     def _commit_row(self, arr, j, val, gate=None):
         """arr[c, j_c] = val_c (for lanes where ``gate``), as a one-hot
-        dense select instead of a scatter: XLA's TPU scatter lowering
-        serialises row updates (measured 20 us/pass for the (256, 1000)
-        beta commit — 13% of the whole K=4 pass,
-        results/round4_pass_budget2.log); the dense where() is a plain
-        ~2x(C, d) stream the VPU chews through in a few us."""
+        dense select instead of a scatter: a plain ~2x(C, d) elementwise
+        stream that fuses with its neighbours, where a per-pass scatter
+        is a kernel of its own."""
         hit = (
             lax.broadcasted_iota(jnp.int32, (1, arr.shape[1]), 1)
             == j[:, None]
@@ -951,8 +837,7 @@ class FreeRunCGGibbs:
         The drop-mode scatters only change anything on passes where some
         lane finished a sweep — for most passes every slot is OOB and the
         scatter is a pure no-op that still streams its (C, d) update
-        tensor (measured ~13 us of the 153 us K=4 pass,
-        results/round4_pass_budget.log).  Gating them under lax.cond
+        tensor.  Gating them under lax.cond
         skips that traffic on no-completion passes; on completion passes
         the scatter is bitwise the previous behavior.  nevbuf records
         each chain's cumulative evals at sweep completion -> honest
@@ -1042,9 +927,8 @@ class FreeRunCGGibbs:
 
         Unlike :meth:`_run`, the loop condition also bounds the pass count
         and ``sweep_count`` is a carried argument, so a long run can be
-        split into dispatches of bounded wall-clock (remote runtimes
-        enforce per-dispatch RPC deadlines).  Sweep-granular dispatching
-        pays the cross-chain sweep tail (the slowest lane's evaluation
+        split into dispatches of bounded wall-clock.  Sweep-granular
+        dispatching pays the cross-chain sweep tail (the slowest lane's evaluation
         count) on EVERY dispatch; a pass-granular dispatch pays it once at
         the end of the whole run — the pod-scale mode.
 
@@ -1091,9 +975,8 @@ class FreeRunCGGibbs:
         resident across dispatches; pass ``None`` to allocate).  Unlike
         chunked :meth:`run` / thin=1 :meth:`run_thinned` — which impose a
         full cross-chain barrier at every chunk boundary, paying the
-        slowest lane's tail per chunk (~10-15% of pod wall-clock at
-        C=4096) — chains here run FREELY across sweep boundaries for the
-        whole collection; the single tail is paid once at the very end.
+        slowest lane's tail per chunk — chains here run FREELY across
+        sweep boundaries for the whole collection; the single tail is paid once at the very end.
         Call repeatedly until ``(sweep_count >= n_sweeps).all()``:
 
             sc, draws, nevbuf = None, None, None
@@ -1156,9 +1039,8 @@ class FreeRunCGGibbs:
         ``(sweep_count >= n_sweeps).all()``.  Identical in law to a single
         ``warmup(state, n_sweeps)`` call — same per-pass kernel, same PRNG
         consumption — but each dispatch's wall-clock is bounded by the pass
-        budget instead of by the slowest chain's sweep, which is what keeps
-        4096-chain warmups inside remote-dispatch RPC deadlines without
-        paying the cross-chain tail once per sweep.
+        budget instead of by the slowest chain's sweep, without paying the
+        cross-chain tail once per sweep.
 
         ``stepout_sweeps`` as in :meth:`warmup` (two-phase schedule; the
         per-lane switch keys off the carried ``sweep_count``, so chunked

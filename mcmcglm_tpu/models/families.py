@@ -1,6 +1,6 @@
-"""Exponential-family response distributions for the TPU GLM engine.
+"""Exponential-family response distributions for the GLM engine.
 
-TPU-native re-design of the reference's S3 ``log_density`` dispatch
+JAX re-design of the reference's S3 ``log_density`` dispatch
 (reference: R/glm_utils.R:24-57) and of R ``stats::family`` objects
 (reference: R/family_data_processing.R:3-16).  A :class:`Family` bundles
 
@@ -9,11 +9,11 @@ TPU-native re-design of the reference's S3 ``log_density`` dispatch
     R/glm_utils.R:8-19), and
   * a :class:`~mcmcglm_tpu.models.links.Link`,
   * an optional *fused* per-observation log-density ``log_density_eta``
-    evaluated directly from the linear predictor ``eta``.  On TPU the fused
+    evaluated directly from the linear predictor ``eta``.  The fused
     path matters twice over: it is more numerically stable in float32
     (e.g. Bernoulli/logit via softplus instead of log(sigmoid)) and it lets
     XLA fuse linkinv into the likelihood kernel so the (chains × n) slice
-    evaluation does a single VPU pass over HBM-resident eta.
+    evaluation does a single pass over the device-resident eta.
 
 Supported out of the box: gaussian, binomial (Bernoulli), poisson,
 negative binomial, inverse gaussian — the set used across the reference's
@@ -74,11 +74,10 @@ class Family:
     # Optional RELATIVE log densities — equal to the absolute ones up to a
     # per-observation constant that does not depend on eta.  Samplers that
     # only ever compare log densities at different eta (slice comparisons,
-    # MH ratios) can use these: the constants cancel exactly.  Two wins:
-    # terms like lgamma(y + 1) are (a) the most expensive transcendentals
-    # in the density and (b) NOT lowerable by Mosaic inside Pallas TPU
-    # kernels ("Unimplemented primitive ... lgamma"), so the relative form
-    # is what makes poisson/negbin/gamma batteries possible at all.
+    # MH ratios) can use these: the constants cancel exactly.  Terms like
+    # lgamma(y + 1) are the most expensive transcendentals in the density,
+    # and Pallas' Triton route has no lgamma lowering, so the relative
+    # form is also what a fused kernel would need.
     _eta_rel_paths: Mapping[str, Callable] = dataclasses.field(default_factory=dict)
     log_density_rel: Optional[Callable] = None  # mu-parametrised relative form
 
@@ -213,11 +212,8 @@ def _bernoulli_probit_eta(eta, y, extra):
 
 def _bernoulli_cloglog_eta(eta, y, extra):
     # mu = 1 - exp(-exp(eta)): log(1-mu) = -exp(eta); log(mu) = log(1 - exp(-ex)).
-    # Spelled WITHOUT expm1 (no Mosaic lowering inside Pallas TPU kernels;
-    # log1p and softplus DO lower — verified on TPU,
-    # results/round4_probe_lowerable.log): direct form for ex > 1e-3; the
-    # series log(ex) - ex/2 + O(ex^2) = eta - ex/2 below, where the direct
-    # f32 form loses precision.
+    # Direct form for ex > 1e-3; the series log(ex) - ex/2 + O(ex^2) =
+    # eta - ex/2 below, where the direct f32 form loses precision.
     dtype = jnp.result_type(eta)
     ex = jnp.exp(eta)
     tiny = jnp.finfo(dtype).tiny
@@ -263,7 +259,7 @@ def _poisson_log_eta(eta, y, extra):
 
 
 def _poisson_log_eta_rel(eta, y, extra):
-    # drop lgamma(y + 1): eta-independent (and not Mosaic-lowerable)
+    # drop lgamma(y + 1): eta-independent
     return y * eta - jnp.exp(eta)
 
 
@@ -318,9 +314,6 @@ def _negbin_log_eta(eta, y, extra):
 
 def _negbin_log_eta_rel(eta, y, extra):
     # drop lgamma(y+r) - lgamma(r) - lgamma(y+1): all eta-independent.
-    # jax.nn.softplus (via log1p) lowers fine in Pallas TPU kernels —
-    # verified, results/round4_probe_lowerable.log (only expm1/lgamma/erf
-    # lack lowerings), so this rel path is battery-eligible as claimed.
     r = jnp.asarray(extra.get("size", 1.0), dtype=jnp.result_type(eta))
     log_r = jnp.log(r)
     log_r_plus_mu = log_r + jax.nn.softplus(eta - log_r)

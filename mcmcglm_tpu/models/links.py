@@ -1,11 +1,11 @@
 """Link functions for GLM families.
 
-TPU-native re-design of R's ``stats::make.link`` machinery used by the
+Re-design of R's ``stats::make.link`` machinery used by the
 reference via ``family$linkinv`` (reference: R/mcmcglm.R:216,269 and
 R/glm_utils.R:210).  Each link is a pure-JAX pair ``(link, linkinv)`` usable
 inside ``jit``/``vmap``/``scan``; inverse links are written in numerically
 stable forms (logits evaluated via sigmoid/softplus, probit via erfc-based
-normal CDF) so that float32 — the TPU-native dtype — is sufficient.
+normal CDF) so that float32 — the engine's working dtype — is sufficient.
 
 Reference parity: the links exercised by the reference docs are identity,
 logit, probit and log (vignettes/pospkg.Rmd:100-107, customising.Rmd:53-56);

@@ -1,6 +1,6 @@
 """The log-potential engine: likelihood + prior as a function of one coordinate.
 
-TPU-native re-design of the reference's model math layer
+Re-design of the reference's model math layer
 (R/glm_utils.R:93-218):
 
   * :func:`update_linear_predictor` — the O(n) incremental eta update, THE
@@ -17,10 +17,10 @@ TPU-native re-design of the reference's model math layer
                + prior_j(b) - prior_j(beta_j)
     with g(beta_j) = 0 by construction.  Evaluating differences of
     per-observation log densities keeps every compared quantity O(1) in
-    magnitude, so float32 — the TPU-native dtype — retains ~1e-6 absolute
+    magnitude, so float32 — the engine's working dtype — retains ~1e-6 absolute
     precision where an absolute log likelihood of order -1e4 would have only
     ~1e-3.  This is what lets the slice accept/reject comparisons run
-    entirely on the VPU in f32 without float64 emulation.
+    entirely in f32 on the device without float64 emulation.
 
 The per-observation current log densities ``ld_cur`` are cached once per
 coordinate update and reused across all slice evaluations of that
@@ -34,6 +34,7 @@ from __future__ import annotations
 from typing import Callable, Mapping, Optional
 
 import jax.numpy as jnp
+from jax import lax
 
 from .families import Family, check_family
 from .priors import BetaPrior
@@ -90,7 +91,7 @@ def log_potential_from_betaj(
             new_beta_j, current_beta[j], current_eta, X[:, j]
         )
     elif linear_predictor_calc == "naive":
-        new_eta = X @ new_beta
+        new_eta = jnp.matmul(X, new_beta, precision=lax.Precision.HIGHEST)
     else:
         raise ValueError("linear_predictor_calc must be 'update' or 'naive'")
     ll = jnp.sum(family.log_density_eta(new_eta, y, extra), axis=-1)

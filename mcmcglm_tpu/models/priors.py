@@ -1,6 +1,6 @@
 """Prior distributions over GLM coefficient vectors.
 
-TPU-native replacement for the reference's use of the CRAN ``distributional``
+JAX replacement for the reference's use of the CRAN ``distributional``
 package (reference: R/mcmcglm.R:150,205-212; R/glm_utils.R:103-115;
 R/sampling.R:5,23-25).  Two layers:
 
@@ -13,7 +13,7 @@ R/sampling.R:5,23-25).  Two layers:
     CGGibbs engine needs: the log prior as a function of a proposed value
     ``b`` for coordinate ``j`` only, up to a ``b``-independent constant.
     The reference evaluates the prior on the whole beta vector at every
-    slice evaluation (O(d) waste, R/glm_utils.R:214-215); on TPU we
+    slice evaluation (O(d) waste, R/glm_utils.R:214-215); here we
     evaluate only the j-th marginal's contribution (exact for iid and
     per-coordinate priors; for a multivariate-normal prior the quadratic
     form reduces to a scalar quadratic in ``b`` given the off-coordinate
@@ -34,6 +34,7 @@ from typing import Sequence
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 __all__ = [
     "Distribution",
@@ -235,7 +236,8 @@ class MultivariateNormal:
     def sample(self, key, shape=()):
         chol = jnp.linalg.cholesky(self.cov)
         eps = jax.random.normal(key, tuple(shape) + self.loc.shape)
-        return self.loc + eps @ chol.T
+        return self.loc + jnp.matmul(eps, chol.T,
+                                     precision=lax.Precision.HIGHEST)
 
     def mean(self):
         return self.loc
@@ -364,7 +366,7 @@ class MVNPrior(BetaPrior):
         r = beta - mu
         p_row = P[j]  # dynamic row gather, O(d)
         p_jj = p_row[j]
-        q_j = jnp.dot(p_row, r) - p_jj * r[j]
+        q_j = jnp.dot(p_row, r, precision=lax.Precision.HIGHEST) - p_jj * r[j]
         rj = b - mu[j]
         return -0.5 * p_jj * rj * rj - rj * q_j
 

@@ -4,7 +4,7 @@ Extracted from freerun.py (pure refactor; the bitwise run/run_passes and
 warmup equivalence tests in tests/test_freerun_spec.py are the guard).
 ``run_pass`` advances every chain by ONE target evaluation;
 ``run_pass_spec`` by a K-proposal speculative battery (see the design
-docstrings in freerun.py and ops/freerun_batteries.py).  Both take the
+docstring in freerun.py).  Both take the
 engine (``freerun.FreeRunCGGibbs``) first and return
 ``(new_state, sweep_count, draws, nevbuf)``; the state class is reused
 via ``type(s)`` so no circular import of FreeRunState is needed.
@@ -245,11 +245,12 @@ def run_pass_spec(eng, s: FreeRunState, sweep_count, draws, nevbuf,
     endpoint sequence L, L-w, L-2w, ... is deterministic, so a pass
     tests a K-endpoint battery (used during warmup).
 
-    Throughput: the classic pass is HBM-bound (3 (C, n) streams, VPU
-    ~10% busy on the log-density transcendentals), so the K-1 extra
-    evaluations ride nearly free while passes-per-coordinate drops
-    from the mean evaluation count (~2.8 at adapted widths) toward
-    ~1.  Wasted speculative evaluations cost VPU only.  `nev` still
+    Throughput: when the pass is bound by memory traffic or by its
+    fixed per-pass cost rather than by the log-density arithmetic, the
+    K-1 extra evaluations ride nearly free while passes-per-coordinate
+    drops from the mean evaluation count (~2.8 at adapted widths)
+    toward ~1.  Wasted speculative evaluations cost arithmetic only.
+    `nev` still
     counts ALGORITHMIC evaluations consumed (identical in law to the
     spec_k=1 engine), not speculative ones executed.
     """
@@ -342,59 +343,14 @@ def run_pass_spec(eng, s: FreeRunState, sweep_count, draws, nevbuf,
     # >= 1 for active shrink lanes; clamped because inactive lanes keep
     # evaluating past their quota without ever committing
     rem = jnp.maximum(eng.max_shrink - s.n_shrink, 0)
-    eta_committed = None
-    xg = None
-    # documented fallback chain: pallas2 -> pallas -> xla.  A None from
-    # _battery2_fn (odd chain count, VMEM overflow) drops to the n-tiled
-    # one-read battery, whose grid over the observation axis fits any n;
-    # a None from _battery_fn drops to the XLA broadcast path.
-    # (pallas3's n budget is checked at construction and AUTO
-    # selections resolve odd chain counts to "xla" at first init
-    # (_resolve_battery); an EXPLICIT pallas3 request with C % 8 != 0
-    # runs the BC=1 grid — correct but slow, the user's call.)
-    battery3 = (
-        eng._battery3_fn(C) if eng.battery_impl == "pallas3" else None
-    )
-    battery2 = (
-        eng._battery2_fn(C) if eng.battery_impl == "pallas2" else None
-    )
-    battery = None
-    if battery2 is None and eng.battery_impl in ("pallas", "pallas2"):
-        battery = eng._battery_fn(C)
-    lsum_abs = None  # fresh scalar sums, kept for the cache refresh
-    if battery3 is not None:
-        # 3-stream pass: in-kernel row gather + fused commit; no XLA
-        # gather at all (s.j is scalar-prefetched into the index_map)
-        scal = jnp.stack(
-            [s.level, s.ld0, (shrinking & active).astype(dtype),
-             rem.astype(dtype)], axis=1)
-        lsum_abs, eta_committed = battery3(s.j, s.eta, deltas, fprior,
-                                           scal)
-        dll = lsum_abs - s.ld0[:, None]
-    elif battery2 is not None:
-        # fused pass: battery eval + in-kernel eta commit; the
-        # decision below is replayed on the identical lsum values
-        xg = jnp.take(eng.Xt, s.j, axis=0)  # (C, n) row gather
-        scal = jnp.stack(
-            [s.level, s.ld0, (shrinking & active).astype(dtype),
-             rem.astype(dtype)], axis=1)
-        lsum_abs, eta_committed = battery2(s.eta, xg, deltas, fprior,
-                                           scal)
-        dll = lsum_abs - s.ld0[:, None]
-    elif battery is not None:
-        # one-read Pallas battery: (C, K) masked log-lik sums directly
-        xg = jnp.take(eng.Xt, s.j, axis=0)  # (C, n) row gather
-        lsum_abs = battery(s.eta, xg, deltas)
+    xg = jnp.take(eng.Xt, s.j, axis=0)  # (C, n) row gather
+    e = s.eta[:, None, :] + xg[:, None, :] * deltas[:, :, None]
+    ld_e = eng._ld_eta(e, eng.y, eng.extra)  # (C, K, n)
+    if eng.eval_cache == "scalar":
+        lsum_abs = eng.reduce_fn(ld_e)
         dll = lsum_abs - s.ld0[:, None]
     else:
-        xg = jnp.take(eng.Xt, s.j, axis=0)  # (C, n) row gather
-        e = s.eta[:, None, :] + xg[:, None, :] * deltas[:, :, None]
-        ld_e = eng._ld_eta(e, eng.y, eng.extra)  # (C, K, n)
-        if eng.eval_cache == "scalar":
-            lsum_abs = eng.reduce_fn(ld_e)
-            dll = lsum_abs - s.ld0[:, None]
-        else:
-            dll = eng.reduce_fn(ld_e - s.ld0[:, None, :])
+        dll = eng.reduce_fn(ld_e - s.ld0[:, None, :])
     f = dll + fprior  # (C, K)
 
     # -- stepping-out: consume the battery along the keep-stepping path --
@@ -440,20 +396,15 @@ def run_pass_spec(eng, s: FreeRunState, sweep_count, draws, nevbuf,
     b_star = jnp.where(accept_move, x_star, s.b0)
     delta_star = jnp.where(accept_move, x_star - s.b0,
                            jnp.zeros((), dtype))
-    if eta_committed is not None:
-        # pallas2/pallas3 already applied eta += xg * delta_star in-kernel
-        eta = eta_committed
-    else:
-        eta = s.eta + xg * delta_star[:, None]
+    eta = s.eta + xg * delta_star[:, None]
     if eng.eval_cache == "scalar":
         # refresh the cache with the accepted proposal's FRESH sum, not
         # the accumulated s.ld0 + dll_star: the accumulated form lets
         # f32 error random-walk per chain over thousands of commits,
         # which biases every subsequent slice test by a persistent
-        # per-chain epsilon — observed on TPU as per-chain intercept
-        # offsets (config #3: pooled intercept ESS plateaued at ~2.2k
-        # across 100/200/300-sweep windows with lag-1 autocorr ~0.1,
-        # the signature of between-chain mean variance).  The classic
+        # per-chain epsilon, seen as per-chain intercept offsets (a
+        # pooled intercept ESS that plateaus across windows, the
+        # signature of between-chain mean variance).  The classic
         # _pass always stored the fresh sum; this restores parity.
         lsum_star = jnp.take_along_axis(lsum_abs, idx[:, None], 1)[:, 0]
         ld0 = jnp.where(accept_move, lsum_star, s.ld0)
@@ -520,11 +471,10 @@ def run_pass_spec(eng, s: FreeRunState, sweep_count, draws, nevbuf,
     # spuriously exhaust-committed b0 — and since an idle lane
     # always sits on the first coordinate after its sweep wrapped
     # (j=0), the INTERCEPT froze for every chain that idled >=
-    # max_shrink evaluations in a boundary tail.  At pod scale with
-    # thin=1 collection (149 boundaries) this froze j=0 for 43% of
-    # 4096 chains (pooled R-hat 14; results/round4_pod_diag.log).
-    # Freezing the registers keeps the lane's coordinate draw intact
-    # across the boundary — it resumes exactly where it paused.
+    # max_shrink evaluations in a boundary tail (with many chains and
+    # thin=1 collection, for a large share of them).  Freezing the
+    # registers keeps the lane's coordinate draw intact across the
+    # boundary — it resumes exactly where it paused.
     def keep(new, old):
         return jnp.where(active, new, old)
 

@@ -1,15 +1,15 @@
 """Multi-host runtime helpers.
 
 The reference's only "distribution" is socket-launched R worker processes on
-one machine (R/slice_utilities.R:72-79 — no NCCL/MPI/anything).  The TPU
-equivalent is the JAX distributed runtime: one process per host, a global
-mesh spanning all hosts' devices, collectives over ICI within a slice and
-DCN across slices (SURVEY.md §5 'distributed communication backend').
+one machine (R/slice_utilities.R:72-79 — no NCCL/MPI/anything).  The
+equivalent here is the JAX distributed runtime: one process per host, a global
+mesh spanning all hosts' devices, collectives over NVLink within a host
+and the network across hosts (SURVEY.md §5 'distributed communication backend').
 
 Usage on each host of a pod slice:
 
     from mcmcglm_tpu.parallel import distributed, make_mesh, ShardedCGGibbs
-    distributed.initialize()            # reads TPU env on Cloud TPU VMs
+    distributed.initialize("host0:1234", num_processes=2, process_id=0)
     mesh = make_mesh(n_chain_shards=jax.device_count() // 2, n_obs_shards=2)
     eng = ShardedCGGibbs(..., mesh=mesh)   # same code as single-host
 
@@ -37,8 +37,9 @@ def initialize(
     process_id: Optional[int] = None,
     local_device_ids=None,
 ):
-    """Initialise the JAX distributed runtime.  On Cloud TPU VMs all
-    arguments auto-detect from the TPU metadata environment.
+    """Initialise the JAX distributed runtime.  Pass the coordinator
+    address, process count and this process's id: a plain GPU host has
+    no cluster environment for JAX to detect them from.
 
     Must run before any JAX computation (backend initialisation pins the
     process-local runtime — which is also why this guard is a module flag

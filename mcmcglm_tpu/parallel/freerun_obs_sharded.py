@@ -6,7 +6,7 @@ slab per chip — for n where either exceeds HBM, the flagship engine
 simply cannot run.  This class extends the free-running automaton to a
 (chain x obs) mesh so the fast engine covers the reference's whole point
 — O(n) per-evaluation work on the long observation axis
-(``/root/reference/R/glm_utils.R:126-132``; SURVEY.md §2.3 maps
+(reference ``R/glm_utils.R:126-132``; SURVEY.md §2.3 maps
 obs-sharding as *the* data-parallel dimension for huge n, §5 "shard the
 n axis, psum per-shard sums"):
 
@@ -24,19 +24,15 @@ is a deterministic function of (psum result, replicated registers, the
 per-chain-shard key), so the obs shards of one chain row advance their
 replicated automaton registers in bitwise lockstep without any further
 communication: one tiny all-reduce per pass is the entire communication
-cost, riding ICI.
+cost, riding the device interconnect (NVLink).
 
 Chain shards still never communicate (the while-loop condition is local
 to the chain shard, as in ``freerun_sharded.py``), so per-chain-shard
 tails are preserved: the ``psum`` groups are the obs rows of each chain
 shard, and different chain shards run different pass counts freely.
 
-Scope: the XLA proposal battery only (any ``spec_k``).  The fused Pallas
-batteries (``ops/freerun_batteries.py`` pallas2/pallas3) replay the
-accept decision *in-kernel* against the local sums — a decision that
-obs-sharding can only make after the cross-shard psum — so they are
-structurally incompatible with this layout; ``battery_impl`` accepts
-``"auto"``/``"xla"`` and rejects Pallas requests loudly.  The
+Any ``spec_k``: the accept decision is made after the cross-shard psum
+of the proposals' partial sums.  The
 ``coord_sampler="conjugate"`` exact gaussian-identity path works
 unchanged (its cross products ride the same psum'd reduction).
 
@@ -73,8 +69,7 @@ class ObsShardedFreeRunCGGibbs:
     count is padded up to a multiple of the obs-axis size (padding rows
     carry zero X, y = 1 and zero reduction weight — masked by *selection*,
     not multiplication, so families whose log density is NaN at the
-    padding point cannot poison the sums; see the identical convention in
-    ops/freerun_batteries.py).
+    padding point cannot poison the sums).
     """
 
     def __init__(
@@ -89,7 +84,6 @@ class ObsShardedFreeRunCGGibbs:
         obs_weights=None,
         offset=None,
         reduce_fn=None,
-        battery_impl: str = "auto",
         dtype=jnp.float32,
         **kwargs,
     ):
@@ -99,13 +93,6 @@ class ObsShardedFreeRunCGGibbs:
                 "(shard-local masked sum + psum over the obs mesh axis); a "
                 "custom reduce_fn cannot be assumed psum-compatible — use "
                 "obs_weights for weighted likelihoods"
-            )
-        if battery_impl not in ("auto", "xla"):
-            raise ValueError(
-                f"battery_impl={battery_impl!r}: the fused Pallas batteries "
-                "replay the accept decision in-kernel against shard-LOCAL "
-                "sums, which obs-sharding cannot do (the decision needs the "
-                "cross-shard psum); only 'auto'/'xla' are supported here"
             )
         self.mesh = mesh if mesh is not None else make_mesh()
         self.n_chain_shards = self.mesh.shape[CHAIN_AXIS]
@@ -159,7 +146,7 @@ class ObsShardedFreeRunCGGibbs:
 
         self.inner = FreeRunCGGibbs(
             X, y, family, prior, extra=extra, tuning=tuning,
-            reduce_fn=global_reduce, battery_impl="xla", offset=offset,
+            reduce_fn=global_reduce, offset=offset,
             dtype=dtype, **kwargs,
         )
         # commit the observation-axis data to the mesh and drop the
@@ -207,7 +194,6 @@ class ObsShardedFreeRunCGGibbs:
         eng.reduce_fn = local_reduce
         # isolate caches: nothing may leak tracers back to the shared inner
         eng._run_cache = {}
-        eng._battery_cache = {}
         return eng
 
     # -- state specs (mirrors freerun_sharded._specs + obs axis) -----------
@@ -244,7 +230,6 @@ class ObsShardedFreeRunCGGibbs:
 
     def init(self, key, n_chains: int) -> FreeRunState:
         c_local = self._check_chains(n_chains)
-        self.inner._resolve_battery(c_local)
         specs = self._specs()
         args, dspecs = self._data_args()
 

@@ -82,13 +82,8 @@ class ShardedFreeRunCGGibbs:
     # carries one key per shard on axis 0 instead.
     def _specs(self):
         s = P(CHAIN_AXIS)
-        # eta is (C, n) — or (C, S, 128) under the pallas3 battery layout
-        eta_spec = (
-            P(CHAIN_AXIS, None, None) if self.inner._eta3 is not None
-            else P(CHAIN_AXIS, None)
-        )
         base = dict(
-            beta=P(CHAIN_AXIS, None), eta=eta_spec,
+            beta=P(CHAIN_AXIS, None), eta=P(CHAIN_AXIS, None),
             ld0=s if self.inner.eval_cache == "scalar" else P(CHAIN_AXIS, None),
             key=s, logw=P(CHAIN_AXIS, None),
             j=s, phase=s, stepdir=s, level=s, L=s, R=s, budL=s, budR=s,
@@ -111,10 +106,6 @@ class ShardedFreeRunCGGibbs:
 
     def init(self, key, n_chains: int) -> FreeRunState:
         c_local = self._check_chains(n_chains)
-        # auto battery selection is per-SHARD-chain-count aware (the inner
-        # automata run on c_local chains each); must resolve before
-        # _specs() reads the eta layout
-        self.inner._resolve_battery(c_local)
         specs = self._specs()
 
         def init_shard(key_data):

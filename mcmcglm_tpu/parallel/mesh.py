@@ -10,7 +10,7 @@ The workload's two parallel axes (SURVEY.md §2.3):
     combined with an all-reduce over this axis every slice evaluation.
 
 ``make_mesh(chain, obs)`` builds a 2-D ``jax.sharding.Mesh`` over the
-available devices (TPU chips on hardware; virtual CPU devices under
+available devices (GPUs on hardware; virtual CPU devices under
 --xla_force_host_platform_device_count in tests/dryruns).
 """
 
@@ -35,7 +35,7 @@ def make_mesh(
 ) -> Mesh:
     """Build a (chain, obs) mesh.  Defaults to all devices on the chain
     axis — the right layout when chains are plentiful and n fits per-device
-    HBM; raise ``n_obs_shards`` for tall datasets."""
+    memory; raise ``n_obs_shards`` for tall datasets."""
     devices = list(devices if devices is not None else jax.devices())
     total = len(devices)
     if n_chain_shards is None:

@@ -12,7 +12,7 @@ recipe): we reuse the single-chip engine's traced computation unchanged and
 
 GSPMD then partitions the whole scan/while program: each slice evaluation's
 observation-axis reduction becomes a shard-local sum + all-reduce (psum)
-over the ``obs`` mesh axis riding ICI, the incremental eta update stays
+over the ``obs`` mesh axis riding the interconnect, the incremental eta update stays
 entirely shard-local (each chip updates its own eta slab with its own
 X[:, j] slab — no communication), and the chain axis never communicates
 until diagnostics pool moments.

@@ -1,6 +1,6 @@
 """The fit-result container and its methods.
 
-TPU-native re-design of the reference's S3 class ``mcmcglm``
+Re-design of the reference's S3 class ``mcmcglm``
 (R/mcmcglm_methods.R): ``samples()``, ``coef()``, ``quantile()``,
 ``trace_plot()``, ``print`` — plus chain-aware extensions the reference
 lacks (multiple chains, ESS, split-R-hat).

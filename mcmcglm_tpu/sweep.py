@@ -1,11 +1,11 @@
 """Tuning-parameter sweep harness.
 
-TPU-native re-design of the reference's experiment utilities
+Re-design of the reference's experiment utilities
 (R/slice_utilities.R:43-155): run ``mcmcglm`` across a vector of one
 tuning-parameter's values and compose per-run trace plots.
 
 Where the reference parallelises with ``future`` multisession R workers
-(R/slice_utilities.R:72-79), the natural TPU axes are: chains (already
+(R/slice_utilities.R:72-79), the natural device axes are: chains (already
 vmapped inside each fit) and the sweep axis itself.  ``parallelise=True``
 runs the sweep points as one *batched* fit by folding the tuning values
 into the chain axis (every value gets ``n_chains`` chains inside a single

@@ -7,18 +7,16 @@ independent reasons:
   small/ragged shapes can take minutes in the CPU backend's dot
   autotuner, while HIGHEST compiles in well under a second.  CPU is the
   test and multi-chip-dryrun platform.
-* TPU correctness: the default TPU matmul rounds operands to bfloat16 on
-  the MXU.  ``eta0 = X @ beta0`` is the ONLY full matvec the CGGibbs
+* Accelerator correctness: a default-precision f32 matmul may round its
+  operands (to TF32 on an NVIDIA GPU, to bfloat16 on other matrix
+  units).  ``eta0 = X @ beta0`` is the ONLY full matvec the CGGibbs
   engines ever run — eta is maintained incrementally (in f32) from then
   on, so any init error is FROZEN for the whole chain.  For a generic
   column the bf16 error averages out over observations, but the
   intercept's all-ones column turns the rounding of beta0[0] into a
   constant per-chain eta offset of ~|beta0|*2^-9 ~ 1e-3, i.e. a
-  permanent per-chain intercept shift.  Diagnosed on baseline config #3
-  (poisson/Laplace): pooled intercept ESS plateaued ~2.2k across
-  100/200/300-sweep windows (chain-mean sd 0.0021 vs the 0.0006 a mixed
-  chain would show) on TPU while bit-identical CPU runs were healthy —
-  see scripts/laplace_diag.py and results/README.md.
+  permanent per-chain intercept shift (seen as a pooled intercept ESS
+  that plateaus however long the chains run).
 
 The matvec runs once per init (plus per-evaluation on the
 ``linear_predictor_calc="naive"`` benchmark-parity path), so HIGHEST

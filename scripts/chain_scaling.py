@@ -6,8 +6,8 @@ Protocol: for each C, compile, burn in (so step-out loops reflect warm
 chains, not prior-cold ones — cold chains inflate the lockstep max-eval
 count), then time warm sweeps.
 
-Run (TPU):  python scripts/chain_scaling.py
-Run (CPU):  env PYTHONPATH=. JAX_PLATFORMS=cpu python scripts/chain_scaling.py --small
+Run (GPU):  python scripts/chain_scaling.py
+Run (CPU):  env JAX_PLATFORMS=cpu python scripts/chain_scaling.py --small
 """
 
 import os as _os

@@ -19,14 +19,14 @@ efficiency to N hosts).
 What it CANNOT show: real chip-scaling numbers.  All S virtual devices
 share this host's cores, so per-shard throughput here falls once S
 exceeds the free core budget — that is core contention, not sharding
-cost.  Read `weak_efficiency` only up to the core count; on real TPU
-shards the same executable runs one-per-chip.
+cost.  Read `weak_efficiency` only up to the core count; on real GPU
+shards the same executable runs one-per-card.
 
 Each device count needs its own XLA_FLAGS at process start, so the script
 re-execs itself per S.
 
 Run:  python scripts/device_scaling_table.py [--chains-per-shard 16]
-Appends one JSON line per S; tee to results/.
+Prints one JSON line per S.
 """
 
 import argparse
@@ -97,7 +97,6 @@ def main():
     rows = []
     for s in (1, 2, 4, 8):
         env = dict(os.environ)
-        env["PYTHONPATH"] = ""
         env["JAX_PLATFORMS"] = "cpu"
         env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={s}"
         r = subprocess.run(

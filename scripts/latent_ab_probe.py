@@ -3,9 +3,8 @@ engine at the north-star config (VERDICT r4 #6 done-criterion: an A/B
 bench entry for the second fast kernel).
 
 Both kernels run in ONE process, interleaved construction order fixed,
-same battery implementation, same chain count — the tunnel-invariant
-comparison protocol (results/round3_battery_probes.log).  Appends JSONL
-rows to results/round5_latent_ab.jsonl.
+same spec_k, same chain count, so drift on the device
+touches every kernel alike.  Prints one JSON row per kernel.
 """
 
 import json
@@ -22,13 +21,10 @@ import numpy as np  # noqa: E402
 def main():
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
     import mcmcglm_tpu as mg
+    from mcmcglm_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
     from mcmcglm_tpu.datagen import generate_glm_data
     from mcmcglm_tpu.diagnostics import ess
     from mcmcglm_tpu.freerun import FreeRunCGGibbs
@@ -36,9 +32,7 @@ def main():
     on_accel = jax.default_backend() != "cpu"
     n, d, C = (10_000, 1000, 256) if on_accel else (2000, 100, 8)
     sweeps, burn = (120, 30) if on_accel else (40, 20)
-    battery = os.environ.get("AB_BATTERY", "pallas2")
     rate = float(os.environ.get("AB_RATE", "0.3"))
-    dest = os.path.join(_REPO, "results", "round5_latent_ab.jsonl")
 
     X, y, _ = generate_glm_data("binomial", n=n, d=d, seed=0)
 
@@ -63,7 +57,7 @@ def main():
         ("doubling", {"slice_kernel": "doubling",
                       "tuning": {"w": float(os.environ.get(
                           "AB_DOUBLING_W", "0.5"))},
-                      "spec_k": 1, "battery_impl": "xla"}),
+                      "spec_k": 1}),
     ]
     only = os.environ.get("AB_KERNELS")
     if only:
@@ -73,7 +67,6 @@ def main():
         t0 = time.perf_counter()
         kwargs = dict(
             spec_k=4 if on_accel else 1,
-            battery_impl=battery if on_accel else "auto",
         )
         kwargs.update(kw)
         eng = FreeRunCGGibbs(
@@ -102,7 +95,7 @@ def main():
         e = ess(draws)
         evals = float((np.asarray(state.nev) - nev0).mean()) / sweeps
         row = {
-            "kernel": name, "battery": eng.battery_impl, "C": C,
+            "kernel": name, "spec_k": eng.spec_k, "C": C,
             "rate": rate if name == "latent" else None,
             "sweeps": sweeps, "seconds": round(tsec, 3),
             "sweeps_per_sec": round(sweeps / tsec, 3),
@@ -113,8 +106,6 @@ def main():
             "min_ess_per_draw": round(float(np.min(e)) / (C * sweeps), 4),
         }
         print(json.dumps(row), flush=True)
-        with open(dest, "a") as fh:
-            fh.write(json.dumps(row) + "\n")
 
 
 if __name__ == "__main__":

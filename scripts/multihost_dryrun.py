@@ -1,9 +1,9 @@
 """Two-process jax.distributed dryrun of the multi-host path (CPU).
 
 The reference's only parallelism is single-machine R worker processes
-(reference R/slice_utilities.R:72-79); the TPU build replaces it with the
+(reference R/slice_utilities.R:72-79); this package replaces it with the
 JAX multi-host runtime (SURVEY.md §2.3/§5).  This script actually EXECUTES
-that path without TPU pod hardware: two OS processes, each with 4 virtual
+that path without multi-host hardware: two OS processes, each with 4 virtual
 CPU devices, joined into one 8-device global mesh via
 ``jax.distributed.initialize`` (gloo CPU collectives).
 

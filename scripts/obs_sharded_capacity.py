@@ -3,13 +3,12 @@
 The claim: the tall-data engine's steady-state PER-DEVICE footprint for
 the observation-axis operands (X^T slabs, y, mask, eta, per-obs caches)
 scales as 1/n_obs_shards, so problems where the replicated layout cannot
-fit one chip run on a (chain x obs) mesh.  Single-chip TPU hardware here
-cannot demonstrate a literal multi-chip OOM save, so the mechanical
-evidence is the XLA-compiled memory analysis on the 8-virtual-device
-mesh: per-device argument + temp bytes of the SAME run executable under
-obs = 1 vs obs = 8 sharding.
+fit one card run on a (chain x obs) mesh.  The mechanical evidence is the
+XLA-compiled memory analysis on the 8-virtual-device CPU mesh: per-device
+argument + temp bytes of the SAME run executable under obs = 1 vs obs = 8
+sharding.
 
-Writes results/round5_obs_sharded_capacity.json.
+Prints one JSON line per mesh and a summary object.
 """
 
 import json
@@ -79,25 +78,19 @@ def main():
             r["argument_bytes_per_device"] / base, 3
         )
         print(json.dumps(r), flush=True)
-    dest = os.path.join(_REPO, "results", "round5_obs_sharded_capacity.json")
-    with open(dest, "w") as fh:
-        json.dump(
-            {
-                "problem": {"n": n, "d": d, "n_chains": C},
-                "note": (
-                    "per-device compiled memory of the SAME obs-sharded "
-                    "freerun run executable under obs=1..8; argument "
-                    "bytes are dominated by the X^T slab + eta, both "
-                    "1/n_obs_shards.  Virtual 8-device CPU mesh (single "
-                    "TPU chip in this environment cannot host a "
-                    "multi-chip mesh); the sharding/compile path is "
-                    "identical on TPU."
-                ),
-                "rows": rows,
-            },
-            fh, indent=1,
-        )
-    print(f"wrote {dest}")
+    print(json.dumps(
+        {
+            "problem": {"n": n, "d": d, "n_chains": C},
+            "note": (
+                "per-device compiled memory of the SAME obs-sharded "
+                "freerun run executable under obs=1..8 on a virtual "
+                "8-device CPU mesh; argument bytes are dominated by the "
+                "X^T slab + eta, both 1/n_obs_shards."
+            ),
+            "rows": rows,
+        },
+        indent=1,
+    ), flush=True)
 
 
 if __name__ == "__main__":

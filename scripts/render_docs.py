@@ -1,13 +1,13 @@
 """Render the example walkthroughs into docs/ with executed output.
 
 The reference ships knitted vignettes whose chunks show real fitted tables
-(/root/reference/vignettes/pospkg.Rmd:79-86 etc.) plus a pkgdown site; the
-TPU repo's analogue is this renderer: each example script is executed and
+(vignettes/pospkg.Rmd:79-86 etc.) plus a pkgdown site; this package's
+analogue is this renderer: each example script is executed and
 its source + captured stdout are written as a markdown document under
 docs/, so the docs always show numbers a reader can reproduce by running
 the same file.
 
-Run: env PYTHONPATH= JAX_PLATFORMS=cpu python scripts/render_docs.py
+Run: env JAX_PLATFORMS=cpu python scripts/render_docs.py
 """
 
 import os
@@ -39,37 +39,34 @@ EXAMPLES = [
         "03_performance.py",
         "Update-vs-naive runtime",
         "The linear-vs-quadratic CGGibbs runtime claim "
-        "(reference README.md:11-16), led by the RECORDED TPU curve "
-        "(log-log slopes ~0.7 update vs ~1.2 naive, ~3x at d=4000; "
-        "`results/round*_eta_comptime_tpu.jsonl`), followed by the "
-        "reference's local methodology (`performance.Rmd`) — whose "
-        "small-d CPU timings are dispatch-bound, hence the TPU record "
-        "is the evidence.",
+        "(reference README.md:11-16) through the reference's own "
+        "methodology (`performance.Rmd`).  Rendered on the CPU, where "
+        "small-d timings are dispatch-bound: this shows how to produce "
+        "the curve, not the device evidence.",
     ),
     (
         "04_multichip.py",
         "Multi-chip sharded sampling",
-        "The TPU-distinctive walkthrough: 64 chains of a logistic GLM "
+        "The multi-device walkthrough: 64 chains of a logistic GLM "
         "over a (chain x obs) device mesh with pooled streaming "
         "diagnostics (`parallel/`).  Rendered here on the 8-virtual-"
-        "device CPU mesh (the CI platform); on a TPU pod slice the same "
-        "script is real multi-chip execution.",
+        "device CPU mesh (the CI platform); on a multi-GPU host the same "
+        "script is real multi-device execution.",
     ),
     (
         "05_speculative_batteries.py",
         "Speculative proposal batteries",
         "The flagship throughput lever: K slice proposals per device "
-        "pass, evaluated in one fused Pallas kernel and consumed "
+        "pass, evaluated in one (C, K, n) reduce and consumed "
         "first-acceptor — identical in law to the one-at-a-time kernel. "
-        "Rendered on CPU (interpret mode); the measured TPU ladder lives "
-        "in `results/README.md`.",
+        "Rendered on the CPU; the measured GPU rates are in `PERF.md`.",
     ),
     (
         "06_tall_data_and_recovery.py",
         "Tall data, on-device diagnostics, alternative kernels",
         "The obs-sharded freerun engine (fast automaton over a "
         "(chain x obs) mesh, one psum of partial log-lik sums per pass) "
-        "for datasets exceeding one chip's HBM; streaming min-ESS on "
+        "for datasets exceeding one card's memory; streaming min-ESS on "
         "device (split-chain autocovariance accumulator — only a (d,) "
         "vector reaches the host); and the latent (Li & Walker 2020) "
         "and doubling (Neal 2003) slice kernels at full freerun speed "
@@ -123,7 +120,7 @@ def main():
         with open(out_md, "w") as f:
             f.write(f"# {title}\n\n{blurb}\n\n")
             f.write(f"Source: [`examples/{fname}`](../examples/{fname}) — "
-                    "run with `env PYTHONPATH= JAX_PLATFORMS=cpu python "
+                    "run with `env JAX_PLATFORMS=cpu python "
                     f"examples/{fname}`.\n\n")
             f.write("## Code\n\n```python\n")
             f.write(src.rstrip())

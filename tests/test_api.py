@@ -1,5 +1,5 @@
 """End-to-end tests for the public mcmcglm() API + results methods —
-the README example flow (README.md:38-107) in the TPU-native API."""
+the README example flow (README.md:38-107) in this package's API."""
 
 import numpy as np
 import pandas as pd

@@ -63,7 +63,7 @@ class TestBuildDesign:
     def test_three_way_star_expansion(self, df):
         """a*b*c = all main effects + interactions up to degree 3, ordered
         by degree (R's model.matrix expansion,
-        /root/reference/R/family_data_processing.R:31-33)."""
+        reference R/family_data_processing.R:31-33)."""
         df = dict(df)
         df["X3"] = np.asarray(df["X1"]) + 1.0
         d = build_design("Y ~ X1*X2*X3", df)

@@ -224,7 +224,7 @@ class TestConjugateValidation:
             FreeRunCGGibbs(X, y, "gaussian",
                            mg.IIDPrior(mg.Normal(0, 1), X.shape[1]),
                            extra={"sd": sd}, spec_k=4,
-                           battery_impl="pallas2",
+                           battery_impl="triton",
                            coord_sampler="conjugate")
 
     def test_rejects_bad_mode(self):

@@ -185,10 +185,10 @@ class TestDoublingFreeRun:
                 X, y, "gaussian", prior, slice_kernel="doubling",
                 tuning={"w": 0.5}, spec_k=4,
             )
-        with pytest.raises(ValueError, match="classic"):
+        with pytest.raises(ValueError, match="battery_impl"):
             FreeRunCGGibbs(
                 X, y, "gaussian", prior, slice_kernel="doubling",
-                tuning={"w": 0.5}, battery_impl="pallas2",
+                tuning={"w": 0.5}, battery_impl="triton",
             )
 
 

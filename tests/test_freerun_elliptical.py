@@ -87,10 +87,10 @@ class TestEllipticalFreeRun:
             nev_fr / d, nev_ls_rate,
         )
 
-    def test_spec_k_and_pallas_battery(self, problem):
+    def test_spec_k_and_scalar_cache_battery(self, problem):
         X, y, mean, _ = problem
         for kw in (dict(spec_k=4),
-                   dict(spec_k=4, battery_impl="pallas2",
+                   dict(spec_k=4,
                         eval_cache="scalar")):
             draws, _, _, _ = _fit(X, y, "elliptical", ELL_TUNING, seed=2,
                                   **kw)
@@ -238,11 +238,11 @@ class TestQuantileFreeRun:
             nev_fr / d, nev_ls_rate,
         )
 
-    def test_spec_k_and_pallas_battery(self, problem):
+    def test_spec_k_and_scalar_cache_battery(self, problem):
         X, y, mean, _ = problem
         tun = {"pseudo_family": "cauchy", "pseudo_scale": 1.0}
         for kw in (dict(spec_k=4),
-                   dict(spec_k=4, battery_impl="pallas2",
+                   dict(spec_k=4,
                         eval_cache="scalar")):
             draws, _, _, _ = _fit(X, y, "quantile", tun, seed=2, **kw)
             post = draws[:, 100:, :].reshape(-1, X.shape[1])

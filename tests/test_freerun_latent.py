@@ -89,13 +89,12 @@ class TestLatentFreeRun:
         post = draws[:, 100:, :].reshape(-1, X.shape[1])
         np.testing.assert_allclose(post.mean(0), mean, atol=0.05)
 
-    def test_pallas_battery_matches(self, problem):
-        """pallas2 fused battery (interpret mode on CPU) under latent —
-        the battery machinery is kernel-agnostic by design."""
+    def test_per_obs_cache_battery_matches(self, problem):
+        """The battery with the per-observation cache under latent — the
+        battery machinery is kernel-agnostic by design."""
         X, y, mean, cov = problem
         draws, _, _, _ = _fit_freerun(
-            X, y, seed=3, spec_k=4, battery_impl="pallas2",
-            eval_cache="scalar",
+            X, y, seed=3, spec_k=4, eval_cache="per_obs",
         )
         post = draws[:, 100:, :].reshape(-1, X.shape[1])
         np.testing.assert_allclose(post.mean(0), mean, atol=0.05)

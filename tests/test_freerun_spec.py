@@ -117,44 +117,80 @@ def test_spec_k_validation():
         )
 
 
-class TestPallasBattery:
-    """battery_impl='pallas': the one-read Pallas battery eval (interpret
-    mode on CPU) must agree with the XLA broadcast formulation numerically
-    and produce the same posterior."""
+class TestXlaBattery:
+    """The K-proposal battery (the XLA (C, K, n) broadcast + reduce in
+    ops/freerun_passes.py::run_pass_spec): its commit keeps eta and the
+    scalar log-likelihood cache consistent with the committed beta, its
+    relative densities are exact, and it samples the right posterior."""
 
-    def test_battery_values_match_xla(self):
-        X, y, _ = generate_glm_data("binomial", n=500, d=8, seed=1)
-        eng = FreeRunCGGibbs(
-            X, y, "binomial", mg.IIDPrior(mg.Normal(0, 1), 8),
-            tuning={"w": 0.5}, spec_k=4, eval_cache="scalar",
-            battery_impl="pallas",
-        )
-        assert eng.battery_impl == "pallas"
-        C = 16
-        rng = np.random.default_rng(0)
-        n_pad = int(eng.Xt.shape[1])
-        assert n_pad % 256 == 0 and n_pad >= 500
+    @pytest.mark.parametrize("C", [16, 13])
+    @pytest.mark.parametrize("weighted", [False, True])
+    @pytest.mark.parametrize("K", [2, 4])
+    def test_pass_commit_consistent(self, C, weighted, K):
+        """After spec passes, eta == X beta and the cached scalar sum is
+        the fresh reduction at eta (the accepted proposal's own sum)."""
         import jax.numpy as jnp
 
-        eta = jnp.asarray(
-            np.where(np.arange(n_pad) < 500,
-                     rng.normal(size=(C, n_pad)), 0.0), jnp.float32)
-        j = jnp.asarray(rng.integers(0, 8, C), np.int32)
-        xg = jnp.take(eng.Xt, j, axis=0)
-        deltas = jnp.asarray(0.2 * rng.normal(size=(C, 4)), jnp.float32)
+        X, y, _ = generate_glm_data("binomial", n=500, d=8, seed=1)
+        w = np.linspace(0.5, 2.0, 500) if weighted else None
+        eng = FreeRunCGGibbs(
+            X, y, "binomial", mg.IIDPrior(mg.Normal(0, 1), 8),
+            tuning={"w": 0.5}, spec_k=K, eval_cache="scalar",
+            obs_weights=w,
+        )
+        st = eng.init(jax.random.key(3), C)
+        beta0 = np.asarray(st.beta).copy()
+        st, _, _ = eng.run(st, 2)
+        beta = np.asarray(st.beta, np.float64)
+        assert np.abs(beta - beta0).max() > 0  # chains committed moves
+        eta_want = beta @ np.asarray(X, np.float64).T
+        np.testing.assert_allclose(np.asarray(st.eta), eta_want, atol=2e-4)
+        ld0_want = eng.reduce_fn(eng._ld_eta(st.eta, eng.y, eng.extra))
+        np.testing.assert_allclose(np.asarray(st.ld0), np.asarray(ld0_want),
+                                   rtol=1e-5)
 
-        lsum_pl = np.asarray(eng._battery_fn(C)(eta, xg, deltas))
-        e = eta[:, None, :] + xg[:, None, :] * deltas[:, :, None]
-        ld = eng.family.log_density_eta(e, eng.y, eng.extra)
-        lsum_ref = np.asarray(eng.reduce_fn(ld))
-        np.testing.assert_allclose(lsum_pl, lsum_ref, rtol=2e-5, atol=2e-3)
+    @pytest.mark.parametrize("family,link", [
+        ("gaussian", "identity"), ("binomial", "logit"),
+        ("binomial", "cloglog"), ("poisson", "log"),
+        ("negative.binomial", "log"), ("Gamma", "log"),
+        ("inverse.gaussian", "log"),
+    ])
+    def test_relative_density_differences_exact(self, family, link):
+        """The battery compares RELATIVE densities (eta-independent
+        constants dropped); their differences across eta must equal the
+        absolute densities' differences (float64 reference)."""
+        import jax.numpy as jnp
 
-    def test_pallas_posterior_matches_oracle(self):
+        from mcmcglm_tpu.models.families import FAMILIES
+
+        fam = FAMILIES[family](link)
+        rng = np.random.default_rng(0)
+        n = 400
+        e0 = 0.3 * rng.normal(size=n)
+        e1 = e0 + 0.1 * rng.normal(size=n)
+        mean = np.asarray(fam.linkinv(jnp.asarray(e0)))
+        y = ((rng.uniform(size=n) < mean).astype(float)
+             if family == "binomial"
+             else rng.poisson(mean).astype(float)
+             if family in ("poisson", "negative.binomial")
+             else mean + rng.normal(size=n) if family == "gaussian"
+             else mean * rng.gamma(4.0, 0.25, size=n))
+        extra = {"sd": 1.0} if family == "gaussian" else {}
+        rel = [np.sum(np.asarray(fam.log_density_eta_rel(
+            jnp.asarray(e, jnp.float32), jnp.asarray(y, jnp.float32),
+            extra), np.float64)) for e in (e0, e1)]
+        ab = [np.sum(np.asarray(fam.log_density_eta(
+            jnp.asarray(e, jnp.float64), jnp.asarray(y, jnp.float64),
+            extra))) for e in (e0, e1)]
+        scale = max(1.0, np.sum(np.abs(ab[0])))
+        assert abs((rel[1] - rel[0]) - (ab[1] - ab[0])) < 2e-6 * scale
+
+    def test_battery_posterior_matches_oracle(self):
         X, y, mu, sd = _gaussian_problem(n=400, d=4, seed=0)
         fr = FreeRunCGGibbs(
             X, y, "gaussian", mg.IIDPrior(mg.Normal(0.0, 1.0), 4),
             extra={"sd": 1.0}, tuning={"w": 0.7}, spec_k=4,
-            eval_cache="scalar", battery_impl="pallas",
+            eval_cache="scalar",
         )
         st = fr.init(jax.random.key(1), 16)
         st, _, _ = fr.warmup(st, 100)
@@ -163,22 +199,19 @@ class TestPallasBattery:
         assert np.abs(post.mean(0) - mu).max() < 0.02
         assert np.abs(post.std(0) / sd - 1.0).max() < 0.08
 
-    def test_pallas_weighted_obs(self):
-        """obs_weights fold into the battery's reduction mask."""
+    def test_battery_weighted_obs(self):
+        """obs_weights fold into the battery's reduction: weight 2 on a
+        row is the same posterior as that row duplicated."""
         X, y, _, _ = _gaussian_problem(n=300, d=3, seed=2)
         w = np.ones(300); w[:150] = 2.0
-        fr_p = FreeRunCGGibbs(
-            X, y, "gaussian", mg.IIDPrior(mg.Normal(0.0, 1.0), 3),
-            extra={"sd": 1.0}, tuning={"w": 0.7}, spec_k=3,
-            eval_cache="scalar", battery_impl="pallas", obs_weights=w,
-        )
-        fr_x = FreeRunCGGibbs(
-            X, y, "gaussian", mg.IIDPrior(mg.Normal(0.0, 1.0), 3),
-            extra={"sd": 1.0}, tuning={"w": 0.7}, spec_k=3,
-            eval_cache="scalar", battery_impl="xla", obs_weights=w,
-        )
+        Xd = np.concatenate([X, X[:150]]); yd = np.concatenate([y, y[:150]])
         posts = []
-        for fr in (fr_p, fr_x):
+        for Xi, yi, wi in ((X, y, w), (Xd, yd, None)):
+            fr = FreeRunCGGibbs(
+                Xi, yi, "gaussian", mg.IIDPrior(mg.Normal(0.0, 1.0), 3),
+                extra={"sd": 1.0}, tuning={"w": 0.7}, spec_k=3,
+                eval_cache="scalar", obs_weights=wi,
+            )
             st = fr.init(jax.random.key(0), 8)
             st, _, _ = fr.warmup(st, 60)
             st, draws, _ = fr.run(st, 250)
@@ -186,73 +219,65 @@ class TestPallasBattery:
         assert np.abs(posts[0].mean(0) - posts[1].mean(0)).max() < 0.05
         assert np.abs(posts[0].std(0) / posts[1].std(0) - 1.0).max() < 0.15
 
-    def test_pallas_validation(self):
+    @pytest.mark.parametrize("impl", ["triton", "pallas3", "nope"])
+    def test_battery_validation(self, impl):
+        """Only the XLA battery exists: 'auto' and 'xla' construct, the
+        removed fused batteries are refused by name."""
         X, y, _, _ = _gaussian_problem(n=100, d=3)
+        kw = dict(extra={"sd": 1.0}, tuning={"w": 0.5}, spec_k=4)
+        pr = mg.IIDPrior(mg.Normal(0, 1), 3)
+        for ok in ("auto", "xla"):
+            FreeRunCGGibbs(X, y, "gaussian", pr, battery_impl=ok, **kw)
         with pytest.raises(ValueError, match="battery_impl"):
-            FreeRunCGGibbs(
-                X, y, "gaussian", mg.IIDPrior(mg.Normal(0, 1), 3),
-                extra={"sd": 1.0}, tuning={"w": 0.5}, spec_k=1,
-                battery_impl="pallas",
-            )
-        with pytest.raises(ValueError, match="battery_impl"):
-            FreeRunCGGibbs(
-                X, y, "gaussian", mg.IIDPrior(mg.Normal(0, 1), 3),
-                extra={"sd": 1.0}, tuning={"w": 0.5}, spec_k=4,
-                battery_impl="nope",
-            )
+            FreeRunCGGibbs(X, y, "gaussian", pr, battery_impl=impl, **kw)
 
 
-class TestPallas2FusedCommit:
-    """battery_impl='pallas2': the 3-stream fused battery + in-kernel eta
-    commit (gather by DMA, decision replayed in-kernel).  The outside
-    automaton recomputes the same decision from the returned sums, so the
-    sampler must remain exact."""
+class TestSpecInLaw:
+    """The K-proposal pass samples the same posterior as the classic
+    one-evaluation pass: same evaluation counts per coordinate and
+    agreeing moments."""
 
-    def test_pallas2_posterior_matches_oracle(self):
-        X, y, mu, sd = _gaussian_problem(n=400, d=4, seed=0)
-        fr = FreeRunCGGibbs(
-            X, y, "gaussian", mg.IIDPrior(mg.Normal(0.0, 1.0), 4),
-            extra={"sd": 1.0}, tuning={"w": 0.7}, spec_k=4,
-            eval_cache="scalar", battery_impl="pallas2",
-        )
-        assert fr.battery_impl == "pallas2"
-        st = fr.init(jax.random.key(1), 16)
-        st, _, _ = fr.warmup(st, 100)
-        st, draws, _ = fr.run(st, 400)
-        post = np.asarray(draws)[:, 100:, :].reshape(-1, 4)
-        assert np.abs(post.mean(0) - mu).max() < 0.02
-        assert np.abs(post.std(0) / sd - 1.0).max() < 0.08
-
-    def test_pallas2_matches_xla_battery_in_law(self):
-        """Same eval counts and agreeing posteriors vs the XLA battery."""
-        X, y, _ = generate_glm_data("binomial", n=500, d=6, seed=3)
-        pr = mg.IIDPrior(mg.Normal(0.0, 1.0), 6)
+    @pytest.mark.parametrize("family,w,d", [
+        ("binomial", 0.5, 6), ("poisson", 0.3, 5),
+    ])
+    def test_spec_matches_classic_in_law(self, family, w, d):
+        X, y, _ = generate_glm_data(family, n=500, d=d, seed=3)
+        pr = mg.IIDPrior(mg.Normal(0.0, 1.0), d)
         posts, rates = [], []
-        for impl in ("xla", "pallas2"):
+        for K in (1, 4):
             fr = FreeRunCGGibbs(
-                X, y, "binomial", pr, tuning={"w": 0.5}, spec_k=4,
-                eval_cache="scalar", battery_impl=impl, adapt_c=40.0,
+                X, y, family, pr, tuning={"w": w}, spec_k=K,
+                eval_cache="scalar", adapt_c=40.0,
             )
             st = fr.init(jax.random.key(0), 16)
             st, _, _ = fr.warmup(st, 60)
             nev0 = np.asarray(st.nev).copy()
             st, draws, nev = fr.run(st, 250)
-            posts.append(np.asarray(draws)[:, 60:, :].reshape(-1, 6))
-            rates.append((np.asarray(nev)[:, -1] - nev0).mean() / (250 * 6))
+            posts.append(np.asarray(draws)[:, 60:, :].reshape(-1, d))
+            rates.append((np.asarray(nev)[:, -1] - nev0).mean() / (250 * d))
         assert abs(rates[0] - rates[1]) / rates[0] < 0.06
         assert np.abs(posts[0].mean(0) - posts[1].mean(0)).max() < 0.06
         assert np.abs(posts[0].std(0) / posts[1].std(0) - 1.0).max() < 0.15
 
+    def test_spec_odd_chain_count(self):
+        X, y, _ = generate_glm_data("binomial", n=300, d=5, seed=1)
+        fr = FreeRunCGGibbs(
+            X, y, "binomial", mg.IIDPrior(mg.Normal(0.0, 1.0), 5),
+            tuning={"w": 0.5}, spec_k=4, eval_cache="scalar",
+        )
+        st = fr.init(jax.random.key(0), 12)
+        assert st.eta.shape == (12, 300)  # plain (C, n) layout, no padding
+        st, _, _ = fr.warmup(st, 30)
+        st, draws, _ = fr.run(st, 80)
+        assert np.isfinite(np.asarray(draws)).all()
 
-class TestBatteryPaddingSafety:
-    """ADVICE round-2 high finding: the battery pads the observation axis,
-    and gamma/inverse-gaussian log densities contain log(y) terms that are
-    NaN/-inf at a padded y=0 — with multiplicative masking (0 * NaN = NaN)
-    every slice comparison went NaN and chains silently froze at init.
-    The fix pads y with 1.0 and masks by selection; these tests pin it."""
+
+class TestBatteryNaNSafety:
+    """Gamma and inverse-gaussian log densities contain log(y) / 1/y terms
+    that go NaN/inf for wild proposals; the battery must keep every chain
+    moving and finite."""
 
     def _gamma_problem(self, n=300, d=4, seed=0):
-        # n chosen NOT lane-aligned so the battery genuinely pads (300->512)
         rng = np.random.default_rng(seed)
         X = np.column_stack(
             [np.ones(n), rng.normal(size=(n, d - 1)) / np.sqrt(d - 1)]
@@ -262,7 +287,7 @@ class TestBatteryPaddingSafety:
         y = rng.gamma(shape=2.0, scale=mu / 2.0)
         return X, y, beta_true
 
-    def test_gamma_battery_padding_no_nan_freeze(self):
+    def test_gamma_battery_no_nan_freeze(self):
         from mcmcglm_tpu.models.families import gamma
 
         X, y, beta_true = self._gamma_problem()
@@ -270,7 +295,7 @@ class TestBatteryPaddingSafety:
         fr = FreeRunCGGibbs(
             X, y, gamma("log"), mg.IIDPrior(mg.Normal(0.0, 2.0), d),
             extra={"shape": 2.0}, tuning={"w": 0.5}, spec_k=4,
-            eval_cache="scalar", battery_impl="pallas2",
+            eval_cache="scalar",
         )
         st = fr.init(jax.random.key(0), 16)
         init_beta = np.asarray(st.beta).copy()
@@ -278,24 +303,22 @@ class TestBatteryPaddingSafety:
         st, draws, _ = fr.run(st, 150)
         draws = np.asarray(draws)
         assert np.isfinite(draws).all()
-        # chains actually moved (the bug froze them bitwise at init)
+        # chains actually moved (a NaN comparison would freeze them)
         assert np.abs(draws[:, -1, :] - init_beta).max() > 0.01
         post = draws[:, 50:, :].reshape(-1, d)
         assert np.abs(post.mean(0) - beta_true).max() < 0.25
 
-    def test_gamma_battery_matches_xla_posterior(self):
-        """pallas battery vs the (unpadded) XLA battery on the same gamma
-        problem: agreeing posteriors prove the padded slots truly drop out."""
+    def test_gamma_battery_matches_classic_posterior(self):
         from mcmcglm_tpu.models.families import gamma
 
         X, y, _ = self._gamma_problem()
         d = X.shape[1]
         posts = []
-        for impl in ("xla", "pallas"):
+        for K in (1, 4):
             fr = FreeRunCGGibbs(
                 X, y, gamma("log"), mg.IIDPrior(mg.Normal(0.0, 2.0), d),
-                extra={"shape": 2.0}, tuning={"w": 0.5}, spec_k=4,
-                eval_cache="scalar", battery_impl=impl, adapt_c=40.0,
+                extra={"shape": 2.0}, tuning={"w": 0.5}, spec_k=K,
+                eval_cache="scalar", adapt_c=40.0,
             )
             st = fr.init(jax.random.key(3), 16)
             st, _, _ = fr.warmup(st, 60)
@@ -304,9 +327,7 @@ class TestBatteryPaddingSafety:
         assert np.abs(posts[0].mean(0) - posts[1].mean(0)).max() < 0.08
         assert np.abs(posts[0].std(0) / posts[1].std(0) - 1.0).max() < 0.2
 
-    def test_invgauss_battery_padding_no_nan(self):
-        """inverse-gaussian with the default 1/mu^2 link: linkinv(0) = inf
-        at padded slots — only selection masking survives this."""
+    def test_invgauss_battery_no_nan(self):
         from mcmcglm_tpu.models.families import inverse_gaussian
 
         rng = np.random.default_rng(1)
@@ -316,57 +337,11 @@ class TestBatteryPaddingSafety:
         fr = FreeRunCGGibbs(
             X, y, inverse_gaussian("log"), mg.IIDPrior(mg.Normal(0.0, 1.0), d),
             extra={"dispersion": 0.5}, tuning={"w": 0.5}, spec_k=4,
-            eval_cache="scalar", battery_impl="pallas",
+            eval_cache="scalar",
         )
         st = fr.init(jax.random.key(0), 8)
         st, _, _ = fr.warmup(st, 30)
         st, draws, _ = fr.run(st, 60)
-        assert np.isfinite(np.asarray(draws)).all()
-
-
-class TestBattery2VmemGate:
-    """ADVICE round-2 medium finding: _battery2_fn keeps whole (BC, n_pad)
-    rows VMEM-resident; large-n problems must fall back to the n-tiled
-    battery instead of failing at Mosaic compile time."""
-
-    def test_large_n_falls_back_to_tiled_battery(self):
-        n, d = 60_000, 4  # n_pad 61440: (6*8+4)*n_pad*4 = 12.8 MB > budget
-        rng = np.random.default_rng(0)
-        X = np.column_stack([np.ones(n), rng.normal(size=(n, d - 1))])
-        y = rng.binomial(1, 0.5, size=n).astype(np.float64)
-        fr = FreeRunCGGibbs(
-            X, y, "binomial", mg.IIDPrior(mg.Normal(0.0, 1.0), d),
-            tuning={"w": 0.5}, spec_k=4, eval_cache="scalar",
-            battery_impl="pallas2",
-        )
-        assert fr._battery2_fn(16) is None  # VMEM gate rejects
-        assert fr._battery_fn(16) is not None  # chain falls to n-tiled
-        # small n keeps the fused-commit kernel
-        frs = FreeRunCGGibbs(
-            X[:2000], y[:2000], "binomial", mg.IIDPrior(mg.Normal(0.0, 1.0), d),
-            tuning={"w": 0.5}, spec_k=4, eval_cache="scalar",
-            battery_impl="pallas2",
-        )
-        assert frs._battery2_fn(16) is not None
-
-    def test_fallback_chain_runs_end_to_end(self):
-        """battery_impl='pallas2' with a VMEM-overflowing n must still
-        sample (through the n-tiled battery), not crash."""
-        n, d = 60_000, 3
-        rng = np.random.default_rng(2)
-        X = np.column_stack([np.ones(n), rng.normal(size=(n, d - 1))])
-        beta_true = np.array([0.5, -0.3, 0.2])
-        y = rng.binomial(
-            1, 1.0 / (1.0 + np.exp(-X @ beta_true))
-        ).astype(np.float64)
-        fr = FreeRunCGGibbs(
-            X, y, "binomial", mg.IIDPrior(mg.Normal(0.0, 1.0), d),
-            tuning={"w": 0.5}, spec_k=4, eval_cache="scalar",
-            battery_impl="pallas2",
-        )
-        st = fr.init(jax.random.key(0), 8)
-        st, _, _ = fr.warmup(st, 5)
-        st, draws, _ = fr.run(st, 10)
         assert np.isfinite(np.asarray(draws)).all()
 
 
@@ -405,86 +380,10 @@ def test_warmup_passes_bitwise_matches_warmup():
     )
 
 
-class TestPallas3InKernelGather:
-    """The 3-stream battery: in-kernel X^T row gather via scalar-prefetch
-    index_map over the (d, S, 128) layout + fused eta commit (pallas3)."""
-
-    def test_pallas3_matches_xla_battery_in_law(self):
-        X, y, _ = generate_glm_data("binomial", n=500, d=6, seed=3)
-        pr = mg.IIDPrior(mg.Normal(0.0, 1.0), 6)
-        posts, rates = [], []
-        for impl in ("xla", "pallas3"):
-            fr = FreeRunCGGibbs(
-                X, y, "binomial", pr, tuning={"w": 0.5}, spec_k=4,
-                eval_cache="scalar", battery_impl=impl, adapt_c=40.0,
-            )
-            st = fr.init(jax.random.key(0), 16)
-            if impl == "pallas3":
-                # eta carried in the (C, S, 128) kernel layout
-                assert st.eta.shape == (16, 4, 128)
-            st, _, _ = fr.warmup(st, 60)
-            nev0 = np.asarray(st.nev).copy()
-            st, draws, nev = fr.run(st, 250)
-            posts.append(np.asarray(draws)[:, 60:, :].reshape(-1, 6))
-            rates.append((np.asarray(nev)[:, -1] - nev0).mean() / (250 * 6))
-        assert abs(rates[0] - rates[1]) / rates[0] < 0.06
-        assert np.abs(posts[0].mean(0) - posts[1].mean(0)).max() < 0.06
-        assert np.abs(posts[0].std(0) / posts[1].std(0) - 1.0).max() < 0.15
-
-    def test_pallas3_odd_chain_count_and_padding(self):
-        """grid=(C,) has no chain-count constraint (battery2 would reject
-        C=12); n=300 pads to 512 so the padded-slot masking is exercised."""
-        X, y, _ = generate_glm_data("binomial", n=300, d=5, seed=1)
-        fr = FreeRunCGGibbs(
-            X, y, "binomial", mg.IIDPrior(mg.Normal(0.0, 1.0), 5),
-            tuning={"w": 0.5}, spec_k=4, eval_cache="scalar",
-            battery_impl="pallas3",
-        )
-        st = fr.init(jax.random.key(0), 12)
-        st, _, _ = fr.warmup(st, 30)
-        st, draws, _ = fr.run(st, 80)
-        assert np.isfinite(np.asarray(draws)).all()
-
-    def test_pallas3_n_budget_rejected_loudly(self):
-        n = 1_600_000  # n_pad * 8 * 4 bytes > 12 MB per-step budget
-        X = np.ones((n, 2), np.float32)
-        y = np.zeros(n, np.float32)
-        with pytest.raises(ValueError, match="pallas3.*budget"):
-            FreeRunCGGibbs(
-                X, y, "binomial", mg.IIDPrior(mg.Normal(0.0, 1.0), 2),
-                tuning={"w": 0.5}, spec_k=4, eval_cache="scalar",
-                battery_impl="pallas3",
-            )
-
-
-def test_poisson_battery_matches_xla_in_law():
-    """Poisson through the Pallas battery (possible only via the relative
-    log density — Mosaic cannot lower lgamma(y+1)); eval counts and
-    posterior must match the XLA battery."""
-    X, y, _ = generate_glm_data("poisson", n=500, d=5, seed=2)
-    pr = mg.IIDPrior(mg.Normal(0.0, 1.0), 5)
-    posts, rates = [], []
-    for impl in ("xla", "pallas3"):
-        fr = FreeRunCGGibbs(
-            X, y, "poisson", pr, tuning={"w": 0.3}, spec_k=4,
-            eval_cache="scalar", battery_impl=impl, adapt_c=40.0,
-        )
-        st = fr.init(jax.random.key(0), 16)
-        st, _, _ = fr.warmup(st, 60)
-        nev0 = np.asarray(st.nev).copy()
-        st, draws, nev = fr.run(st, 250)
-        posts.append(np.asarray(draws)[:, 60:, :].reshape(-1, 5))
-        rates.append((np.asarray(nev)[:, -1] - nev0).mean() / (250 * 5))
-    assert abs(rates[0] - rates[1]) / rates[0] < 0.06
-    assert np.abs(posts[0].mean(0) - posts[1].mean(0)).max() < 0.06
-    assert np.abs(posts[0].std(0) / posts[1].std(0) - 1.0).max() < 0.15
-
-
 class TestBf16XStorage:
     """x_storage='bf16': the design matrix is rounded ONCE up front and
     every path computes on the same rounded values, so the engine exactly
-    samples the posterior of X' = bf16(X) — and the pallas3 battery ships
-    the halved X-row stream.  These tests pin (a) the posterior shift
+    samples the posterior of X' = bf16(X).  These tests pin (a) the posterior shift
     from the design rounding is far below the posterior sd, (b) the
     rounding is applied consistently (eta matches X' beta, not X beta)."""
 
@@ -499,8 +398,7 @@ class TestBf16XStorage:
         d = X.shape[1]
         fr = FreeRunCGGibbs(
             X, y, "binomial", mg.IIDPrior(mg.Normal(0.0, 1.0), d),
-            tuning={"w": 0.5}, spec_k=4, battery_impl="pallas3",
-            x_storage=x_storage,
+            tuning={"w": 0.5}, spec_k=4, x_storage=x_storage,
         )
         st = fr.init(jax.random.key(seed), 16)
         st, _, _ = fr.warmup(st, 40)
@@ -522,13 +420,11 @@ class TestBf16XStorage:
         d = X.shape[1]
         fr = FreeRunCGGibbs(
             X, y, "binomial", mg.IIDPrior(mg.Normal(0.0, 1.0), d),
-            tuning={"w": 0.5}, spec_k=4, battery_impl="pallas3",
-            x_storage="bf16",
+            tuning={"w": 0.5}, spec_k=4, x_storage="bf16",
         )
         st = fr.init(jax.random.key(0), 8)
         st, _, _ = fr.run(st, 3)
-        n_pad = int(np.prod(fr.Xt.shape[1:]))
-        eta = np.asarray(st.eta).reshape(8, n_pad)[:, :fr.n]
+        eta = np.asarray(st.eta)
         Xp = np.asarray(X).astype(np.float32)
         import jax.numpy as jnp
         Xr = np.asarray(jnp.asarray(Xp).astype(jnp.bfloat16).astype(jnp.float32))
@@ -549,8 +445,8 @@ class TestBf16XStorage:
 
 
 def test_commit_row_equals_scatter_semantics():
-    """_commit_row (the one-hot dense select that replaced the serialised
-    TPU scatter) must be element-for-element the scatter it replaced,
+    """_commit_row (the one-hot dense select that replaced a per-pass
+    scatter) must be element-for-element the scatter it replaced,
     including the gated form (only gated lanes write)."""
     import jax.numpy as jnp
 
@@ -578,14 +474,13 @@ def test_commit_row_equals_scatter_semantics():
 
 
 def test_idle_lanes_do_not_burn_shrink_budget_across_boundaries():
-    """Regression (round-4 pod anomaly, results/round4_pod_diag.log):
-    after a chain fills its sweep quota it idles while slower chains
+    """Regression (many-chain boundary anomaly): after a chain fills its sweep quota it idles while slower chains
     finish; its automaton must FREEZE — previously the idle lane kept
     shrinking its interval and burning its shrink budget, so at the next
     run boundary it resumed with rem=0 and exhaust-committed b0, skipping
     the first coordinate after the sweep wrap (the intercept) for every
-    chain that idled long enough; at pod scale (thin=1, 149 boundaries)
-    this FROZE the intercept outright for 43% of 4096 chains.  Provoked
+    chain that idled long enough; with thousands of chains and thin=1
+    collection this FROZE the intercept outright for many chains.  Provoked
     here with a tiny max_shrink, many chains (long boundary tails
     relative to d) and many one-sweep boundaries; the metric is the
     intercept MOVE RATE across boundaries (pre-fix ~0.45 here; the
@@ -634,10 +529,9 @@ def test_pass_hlo_scatter_budget():
     """Structural performance guard (like the zero-collective HLO test,
     tests/test_sharding.py): the compiled pass may contain AT MOST the
     two cond-gated sweep-buffer scatters (draws + nevbuf).  The beta and
-    logw commits are one-hot dense selects — XLA's TPU scatter lowering
-    serialises row updates and cost 20 us/pass before round 4
-    (results/round4_pass_budget2.log); reintroducing a per-pass scatter
-    would silently regress the pass by ~30%."""
+    logw commits are one-hot dense selects that fuse with their
+    neighbours; reintroducing a per-pass scatter would add a kernel of
+    its own to every pass."""
     import re
     from functools import partial
 

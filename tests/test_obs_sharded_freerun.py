@@ -339,7 +339,7 @@ class TestObsShardedContract:
         with pytest.raises(ValueError, match="Pallas"):
             ObsShardedFreeRunCGGibbs(
                 X, y, "gaussian", prior, mesh=mesh, tuning={"w": 0.5},
-                battery_impl="pallas2",
+                battery_impl="triton",
             )
         with pytest.raises(ValueError, match="reduce_fn"):
             ObsShardedFreeRunCGGibbs(

@@ -76,8 +76,8 @@ def test_sharded_thin1_boundaries_intercept_mixes():
     """Pod-collection regression (round-4 boundary-idle bug): the sharded
     engine driven exactly like the pod config — run_thinned(thin=1),
     one-sweep dispatches, streaming moments — must keep the intercept
-    mixing in every chain (pre-fix: pooled R-hat 14, 43% of chains
-    frozen at pod scale; results/round4_pod_diag.log)."""
+    mixing in every chain (pre-fix: pooled R-hat 14, a large share of
+    chains frozen at thousands of chains)."""
     import mcmcglm_tpu as mg
     from mcmcglm_tpu.datagen import generate_glm_data
     from mcmcglm_tpu.parallel.freerun_sharded import ShardedFreeRunCGGibbs

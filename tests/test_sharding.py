@@ -1,4 +1,4 @@
-"""Multi-device tests on the 8-virtual-CPU-device mesh (the TPU-pod
+"""Multi-device tests on the 8-virtual-CPU-device mesh (the multi-GPU
 analogue of a fake cluster backend; SURVEY.md §4)."""
 
 import jax
@@ -212,7 +212,7 @@ def test_api_mesh_routing(problem):
         log_likelihood_extra_args={"sd": 1.0},
     )
     assert np.abs(np.asarray(fit2.coef()) - mu).max() < 0.1
-    with pytest.raises(ValueError, match="single-chip"):
+    with pytest.raises(ValueError, match="engine must be"):
         mg.mcmcglm(
             X=X, y=y, family="gaussian", n_samples=50, burnin=10,
             n_chains=8, engine="fused", w=0.7, mesh=mesh,
@@ -275,10 +275,10 @@ class TestShardedFreeRunThinned:
         assert np.abs(np.asarray(summ["mean"]) - mu).max() < 0.05
         assert float(np.max(np.asarray(summ["rhat"]))) < 1.1
 
-    def test_sharded_pallas2_battery(self, problem):
-        """The fused battery+commit kernel composes with shard_map (one
-        independent free-running automaton per device, pallas2 inside) —
-        the pod-scale configuration with speculative batching."""
+    def test_sharded_spec_battery(self, problem):
+        """The K-speculative pass composes with shard_map (one independent
+        free-running automaton per device) — the many-chain configuration
+        with speculative batching."""
         from mcmcglm_tpu.parallel import ShardedFreeRunCGGibbs
 
         X, y, _ = problem
@@ -288,7 +288,7 @@ class TestShardedFreeRunThinned:
         eng = ShardedFreeRunCGGibbs(
             X, y, "gaussian", mg.IIDPrior(mg.Normal(0, 1), d),
             extra={"sd": 1.0}, tuning={"w": 0.7}, mesh=make_mesh(8, 1),
-            spec_k=4, battery_impl="pallas2", eval_cache="scalar",
+            spec_k=4, eval_cache="scalar",
         )
         st = eng.init(jax.random.key(3), 64)  # 8 chains per device
         st, _, _ = eng.warmup(st, 80)

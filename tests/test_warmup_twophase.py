@@ -1,5 +1,4 @@
-"""Tests for two-phase warmup (freerun.py::warmup stepout_sweeps) and the
-chain-count-aware auto battery resolution (freerun.py::_resolve_battery).
+"""Tests for two-phase warmup (freerun.py::warmup stepout_sweeps).
 
 Two-phase warmup runs a few full stepping-out sweeps (locating each
 coordinate's scale) then switches to the shrink-only kernel with width
@@ -134,55 +133,3 @@ def test_spec1_twophase_also_works():
     st, draws, _ = fr.run(st, 300)
     post = np.asarray(draws)[:, 100:, :].reshape(-1, d)
     assert np.abs(post.mean(0) - mu).max() < 0.03
-
-
-# -- chain-count-aware auto battery resolution ---------------------------
-
-
-def test_resolve_battery_demotes_odd_chain_count():
-    """Auto-selected Pallas batteries demote to the XLA battery when the
-    first init's chain count is not a multiple of 8 (every Pallas block
-    layout needs C % 8 == 0; pallas3's BC=1 fallback measured slower than
-    the classic pass — ADVICE r3)."""
-    X, y, _ = generate_glm_data("binomial", n=300, d=6, seed=0)
-    fr = FreeRunCGGibbs(
-        X, y, "binomial", mg.IIDPrior(mg.Normal(0, 1), 6),
-        tuning={"w": 0.5}, spec_k=4, battery_impl="xla",
-    )
-    # simulate the accelerator auto selection (CPU auto always picks xla)
-    fr._battery_auto = True
-    fr.battery_impl = "pallas3"
-    fr._battery_resolved = False
-    fr._resolve_battery(12)  # 12 % 8 != 0
-    assert fr.battery_impl == "xla"
-    assert fr._eta3 is None
-
-
-def test_resolve_battery_latches_first_resolution():
-    """Resolution latches at first init: a later odd chain count must NOT
-    demote (existing states carry the eta layout chosen first)."""
-    X, y, _ = generate_glm_data("binomial", n=300, d=6, seed=0)
-    fr = FreeRunCGGibbs(
-        X, y, "binomial", mg.IIDPrior(mg.Normal(0, 1), 6),
-        tuning={"w": 0.5}, spec_k=4, battery_impl="xla",
-    )
-    fr._battery_auto = True
-    fr.battery_impl = "pallas2"
-    fr._battery_resolved = False
-    fr._resolve_battery(16)  # divisible: keeps the Pallas battery
-    assert fr.battery_impl == "pallas2"
-    fr._resolve_battery(12)  # latched: no demotion after the fact
-    assert fr.battery_impl == "pallas2"
-
-
-def test_explicit_battery_never_demoted():
-    """An explicitly requested Pallas impl is the user's call: resolution
-    must leave it alone even for odd chain counts."""
-    X, y, _ = generate_glm_data("binomial", n=300, d=6, seed=0)
-    fr = FreeRunCGGibbs(
-        X, y, "binomial", mg.IIDPrior(mg.Normal(0, 1), 6),
-        tuning={"w": 0.5}, spec_k=4, battery_impl="pallas2",
-    )
-    assert not fr._battery_auto
-    fr._resolve_battery(12)
-    assert fr.battery_impl == "pallas2"
